@@ -3,14 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from lz4_tpu_torch/csrc with nvcc, holds each
-kernel against its plain PyTorch version on the card, drives the port's
-main path (the fast-tier block round trip through `TorchBackend`) over a
-48 MB real-file corpus in 64 KB blocks, then round-trips linked and
-independent frames through the port's frame layer. Any failure raises.
-The last line is {"ok": true, "device": {...}}; the line before it is the
-card's name and power limit, and before that a {"kernels": [...]} line.
-Needs one CUDA GPU; exits non-zero without one.
+Builds the CUDA kernels from lz4_tpu_torch/csrc with nvcc (all at once)
+and the host C library with cc, holds each kernel (B1-B4) against its
+plain PyTorch version on the card, then drives the port's paths through
+the entry points a user calls, each with every launch count set to 0
+just before it and read just after:
+
+- the main path: the fast-tier block round trip through `TorchBackend`
+  over a 48 MB real-file corpus in 64 KB blocks (B1 to compress; the
+  wave tier, host C splitter plus B3, to decompress), and the same
+  decompress with `wave_decode` off (B2);
+- the `max_dist=2048` path: B4 plus the host C emitter, round-tripped
+  through the wave tier and the host C decoder;
+- frames: 16 MB linked and independent frames through the sequential
+  frame layer (B1, B2 for linked blocks, B3), and 128 streams x 384 KiB
+  through the batch frame surfaces (B4, B3), linked frames also through
+  the sequential decoder (B2).
+
+Any failure raises. The last line is {"ok": true, "device": {...}}; the
+line before it is the card's name and power limit, and before that a
+{"kernels": [...]} line. Needs one CUDA GPU; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -22,9 +34,12 @@ import time
 import numpy as np
 import torch
 
-from lz4_tpu_torch import _build
-from lz4_tpu_torch.block import decode_cuda, encode_cuda
+from lz4_tpu_torch import _build, native
+from lz4_tpu_torch.block import (decode_cuda, decode_wave, encode_cuda,
+                                 encode_wave)
+from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
+from lz4_tpu_torch.frame import batch as frame_batch
 from lz4_tpu_torch.frame.format import FrameInfo, Preferences
 from lz4_tpu_torch.frame.reader import decompress_frame
 from lz4_tpu_torch.frame.writer import compress_frame
@@ -36,6 +51,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 BLOCK = 65536
 CORPUS = 48 << 20
 PLAIN_ROWS = 8
+KERNELS = {"B1": encode_cuda, "B2": decode_cuda, "B3": decode_wave,
+           "B4": encode_wave}
 
 
 def log(*a):
@@ -77,6 +94,25 @@ def stage(steps, name, fn):
     torch.cuda.synchronize()
     steps[name] = (time.perf_counter() - t0) * 1e3
     return r
+
+
+def one_c_call(fn):
+    """Host ms of fn() with the native batch calls kept to one span."""
+    rows = native.SPAN_ROWS
+    native.SPAN_ROWS = 1 << 30
+    try:
+        return host_ms(fn)
+    finally:
+        native.SPAN_ROWS = rows
+
+
+def reset_launches():
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: mod.launches for k, mod in KERNELS.items()}
 
 
 # ------------------------------------------------------------ comparisons
@@ -159,6 +195,105 @@ def mutations(streams, n, seed):
     return out
 
 
+def wave_arenas(streams, NP, hist_len=0):
+    """The splitter's arenas of `streams` (each must be accepted)."""
+    arenas = np.zeros((len(streams), NP, decode_wave.WCAP), np.uint8)
+    out_lens = np.zeros(len(streams), np.int32)
+    for i, c in enumerate(streams):
+        r = native.blockcodec.wave_split(c, max_pieces=NP, out_cap=NP * 1024,
+                                         hist_len=hist_len)
+        if r is None:
+            raise AssertionError(f"splitter rejected stream {i}")
+        arenas[i, : r[0].shape[0]] = r[0]
+        out_lens[i] = r[1]
+    return arenas, out_lens
+
+
+def arena_bytes_read(arenas, out_lens) -> int:
+    """Arena bytes B3's parse reads: each live piece's slot up to the end
+    of its sequences (the rest of the 1088-byte slot is padding it never
+    reads). The parse of every piece at once, one sequence per step."""
+    B, NP, W = arenas.shape
+    flat = arenas.reshape(-1)
+    o_end = np.clip(np.repeat(out_lens.astype(np.int64), NP)
+                    - np.tile(np.arange(NP), B) * decode_wave.WOUT,
+                    0, decode_wave.WOUT)
+    c = np.zeros(B * NP, np.int64)
+    o = np.zeros(B * NP, np.int64)
+    act = np.nonzero(o_end > 0)[0]
+    while act.size:
+        ca, oa, base = c[act], o[act], act * W
+
+        def rd(q):
+            return np.where(q < W, flat[base + np.minimum(q, W - 1)],
+                            0).astype(np.int64)
+        tok = rd(ca)
+        ca += 1
+        lit, mn = tok >> 4, tok & 15
+        ext = lit == 15
+        lit += np.where(ext, rd(ca), 0)
+        ca += ext + lit
+        oa += lit
+        ca += 2 * (mn > 0)
+        ext = mn == 15
+        mlen = mn + np.where(ext, rd(ca), 0)
+        ca += ext
+        oa += mlen
+        c[act], o[act] = ca, oa
+        act = act[(oa < o_end[act]) & (ca < W)]
+    return int(np.minimum(c, W).sum())
+
+
+def compare_wave_decode(gpu, plain, out_lens):
+    gpu = gpu.cpu()
+    err = 0
+    for i, n in enumerate(out_lens.tolist()):
+        if n:
+            d = (gpu[i, :n].int() - plain[i, :n].int()).abs()
+            err = max(err, int(d.max()))
+    if err:
+        raise AssertionError(f"B3 output bytes differ (max abs {err})")
+    return err
+
+
+def wave_decode_case(streams, NP, hist=None):
+    """B3 vs plain on the arenas of `streams`; hist is a 64 KB history
+    shared by every stream. Returns (max abs error, decoded rows)."""
+    arenas, out_lens = wave_arenas(streams, NP,
+                                   0 if hist is None else 65536)
+    a, n = torch.from_numpy(arenas), torch.from_numpy(out_lens)
+    h = None
+    if hist is not None:
+        h = torch.from_numpy(np.tile(np.frombuffer(hist, np.uint8),
+                                     (len(streams), 1)))
+    gpu = decode_wave.wave_decode(a.cuda(), n.cuda(),
+                                  None if h is None else h.cuda())
+    torch.cuda.synchronize()
+    plain = decode_wave.wave_decode_plain(a, n, h)
+    err = compare_wave_decode(gpu, plain, out_lens)
+    return err, [plain[i, :k].numpy().tobytes()
+                 for i, k in enumerate(out_lens.tolist())]
+
+
+def find_matches_case(blocks, *, max_dist, hash_bits, hist=None,
+                      hlen=None):
+    """B4 vs plain decisions, exact. Returns the max abs difference."""
+    n_rows = encode_wave.rows_for(max(len(b) for b in blocks))
+    inp, lens = (torch.from_numpy(a)
+                 for a in encode_wave.pack_input(blocks, n_rows))
+    args = (inp, lens) if hist is None else (inp, lens, hist, hlen)
+    gpu = encode_wave.find_matches(*(t.cuda() for t in args),
+                                   max_dist=max_dist,
+                                   hash_bits=hash_bits).cpu()
+    plain = encode_wave.find_matches_plain(*args, max_dist=max_dist,
+                                           hash_bits=hash_bits)
+    if not torch.equal(gpu, plain):
+        bad = (gpu != plain).nonzero()[:4].tolist()
+        raise AssertionError(f"B4 decisions differ at {bad} (max_dist "
+                             f"{max_dist}, hash_bits {hash_bits})")
+    return 0
+
+
 # ----------------------------------------------------------------- phases
 
 def phase_kernels_vs_plain():
@@ -204,34 +339,108 @@ def phase_kernels_vs_plain():
         raise AssertionError("B2 loose piece failed")
     dec_err = max(dec_err, e)
     log("B2 == plain: valid, dict, mutated and loose streams")
-    return enc_err, dec_err
+
+    # B3 on the splitter's arenas: B1 streams, host C HC streams (long
+    # matches, far offsets), 1-piece streams, NP 4/16/64, a 64 KB history
+    bc = native.blockcodec
+    w_err = 0
+    live = [c for c, b in zip(streams[1], blocks) if b]
+    e, out = wave_decode_case(live, 64)
+    if out != [b for b in blocks if b]:
+        raise AssertionError("B3 failed on B1 streams")
+    w_err = max(w_err, e)
+    text = gen_text(3 * BLOCK, seed=8)
+    hc_src = [text[:BLOCK], (b"0123456789abcdef" * 4096)[:BLOCK],
+              rng.bytes(3000) * 20, b"\xaa" * 60000]
+    for NP, n in ((4, 4096), (16, 16384), (64, BLOCK)):
+        srcs = [s[:n] for s in hc_src] + [gen_buffer(n, 0.8, seed=NP)]
+        ss = [bc.compress_hc(x, 9) for x in srcs] + \
+            [bc.compress(x) for x in srcs]
+        e, out = wave_decode_case(ss, NP)
+        if out != srcs * 2:
+            raise AssertionError(f"B3 failed at NP {NP}")
+        w_err = max(w_err, e)
+    one = [gen_text(k, seed=k) for k in (1, 13, 200, 1024)]
+    e, out = wave_decode_case([bc.compress(x) for x in one], 4)
+    if out != one:
+        raise AssertionError("B3 failed on 1-piece streams")
+    w_err = max(w_err, e)
+    hist = text[BLOCK: 2 * BLOCK]
+    ring_src = [text[2 * BLOCK:], text[BLOCK + 100: BLOCK + 30000],
+                gen_buffer(40000, 0.7, seed=9)]
+    e, out = wave_decode_case([bc.compress(x, dict_prefix=hist)
+                               for x in ring_src], 64, hist=hist)
+    if out != ring_src:
+        raise AssertionError("B3 failed with a 64 KB history")
+    w_err = max(w_err, e)
+    log("B3 == plain: B1, HC and 1-piece streams, NP 4/16/64, "
+        "64 KB history")
+
+    # B4 decisions: tiny, all-zero and random blocks, no-dict and linked
+    wblocks = [b"Q", b"abc" * 5, bytes(13), b"\x00" * 8000, rng.bytes(6000),
+               gen_text(20000, seed=10), gen_buffer(9000, 0.8, seed=11)]
+    n_rows = encode_wave.rows_for(max(len(b) for b in wblocks))
+    htext = np.frombuffer(gen_text(70000, seed=12), np.uint8)
+    for hb in (9, 10):
+        for md in (1024, 2048, 65535):
+            find_matches_case(wblocks, max_dist=md, hash_bits=hb)
+            wr = encode_wave.history_rows(md, n_rows)
+            hist_t = torch.from_numpy(np.tile(htext[-wr * 4:],
+                                              (len(wblocks), 1)))
+            for hl in (wr * 4, 300):        # full and partial history
+                hlen = torch.full((len(wblocks),), hl, dtype=torch.int32)
+                find_matches_case(wblocks, max_dist=md, hash_bits=hb,
+                                  hist=hist_t, hlen=hlen)
+    log("B4 == plain: hash_bits 9/10, max_dist 1024/2048/65535, no-dict "
+        "and linked (full and partial history)")
+    return enc_err, dec_err, w_err, 0
 
 
 def phase_main_path(be):
     data = real_corpus(CORPUS)
     blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
-    log(f"main path: {describe(data)}, {len(blocks)} blocks of {BLOCK}")
-    encode_cuda.launches = 0
-    decode_cuda.launches = 0
+    B = len(blocks)
+    log(f"main path: {describe(data)}, {B} blocks of {BLOCK}")
+    fallbacks = be.host_fallbacks
+    reset_launches()
     comp = be.compress_batch(blocks, level=1)
-    back = be.decompress_batch(comp, [BLOCK] * len(blocks))
-    launches = {"B1": encode_cuda.launches, "B2": decode_cuda.launches}
+    on_compress = read_launches()
+    back = be.decompress_batch(comp, [BLOCK] * B)
+    launches = read_launches()
+    on_decompress = {k: launches[k] - on_compress[k] for k in launches}
     if back != blocks:
         raise AssertionError("main path round trip differs from the source")
-    if min(launches.values()) < 1:
+    if launches["B1"] < 1 or on_decompress["B3"] < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+    if on_decompress["B2"] or be.host_fallbacks != fallbacks:
+        raise AssertionError(
+            f"decompress left the wave tier: {on_decompress}, host "
+            f"fallbacks {be.host_fallbacks - fallbacks}")
     csum = sum(len(c) for c in comp)
     log(f"main path round trip ok: ratio {len(data) / csum:.4f}, "
-        f"launches {launches}")
+        f"launches {launches} (decompress: {on_decompress}, host "
+        f"fallbacks 0)")
 
     # end to end through TorchBackend (host packing and copies included)
     enc_ms = cuda_ms(lambda: be.compress_batch(blocks, level=1), runs=3)
-    dec_ms = cuda_ms(lambda: be.decompress_batch(comp, [BLOCK] * len(blocks)),
+    dec_ms = cuda_ms(lambda: be.decompress_batch(comp, [BLOCK] * B),
                      runs=3)
     mb = len(data) / 1e6
+    # the same call with the wave tier switched off (B2), for comparison
+    be.wave_decode = False
+    reset_launches()
+    if be.decompress_batch(comp, [BLOCK] * B) != blocks:
+        raise AssertionError("decompress with wave_decode off differs")
+    b2_launches = read_launches()
+    if b2_launches["B2"] < 1 or b2_launches["B3"]:
+        raise AssertionError(f"wave_decode off skipped B2: {b2_launches}")
+    b2_ms = cuda_ms(lambda: be.decompress_batch(comp, [BLOCK] * B), runs=3)
+    be.wave_decode = True
     log(f"TorchBackend compress {mb / enc_ms * 1e3:.1f} MB/s "
-        f"({enc_ms:.3f} ms), decompress {mb / dec_ms * 1e3:.1f} MB/s "
-        f"({dec_ms:.3f} ms), ratio {len(data) / csum:.4f}")
+        f"({enc_ms:.3f} ms), decompress (wave tier) "
+        f"{mb / dec_ms * 1e3:.1f} MB/s ({dec_ms:.3f} ms), ratio "
+        f"{len(data) / csum:.4f}; decompress with wave_decode off (B2) "
+        f"{mb / b2_ms * 1e3:.1f} MB/s ({b2_ms:.3f} ms)")
 
     # where TorchBackend's time goes: the same steps, one at a time
     steps = {}
@@ -243,37 +452,44 @@ def phase_main_path(be):
     host = stage(steps, "d2h", lambda: (enc[0].cpu().numpy(),
                                         enc[1].cpu().tolist()))
     stage(steps, "to_bytes", lambda: [host[0][i, : host[1][i]].tobytes()
-                                      for i in range(len(blocks))])
+                                      for i in range(B)])
     log("compress steps (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in steps.items()))
     steps = {}
-    arrays_d = stage(steps, "pack", lambda: pack_blocks(
-        comp, cap=max(len(c) for c in comp)))
-    dev_d = stage(steps, "h2d", lambda: to_device_batch(*arrays_d,
-                                                        device="cuda"))
-    dec = stage(steps, "B2", lambda: decode_cuda.decode_blocks(
-        dev_d[0], dev_d[1], cap_out=BLOCK))
-    host = stage(steps, "d2h", lambda: (dec[0].cpu().numpy(),
-                                        dec[1].cpu().tolist(),
-                                        dec[2].cpu().tolist()))
-    stage(steps, "to_bytes", lambda: [host[0][i, : host[1][i]].tobytes()
-                                      for i in range(len(blocks))])
+    arenas, out_lens = stage(steps, "split", lambda: (
+        native.blockcodec.wave_split_batch(comp, max_pieces=64,
+                                           out_caps=[BLOCK] * B)))
+    a_h, n_h = stage(steps, "pack", lambda: (torch.from_numpy(arenas),
+                                             torch.from_numpy(out_lens)))
+    a_d, n_d = stage(steps, "h2d", lambda: (a_h.cuda(), n_h.cuda()))
+    wout = stage(steps, "B3", lambda: decode_wave.wave_decode(a_d, n_d))
+    host = stage(steps, "d2h", lambda: wout.cpu().numpy())
+    stage(steps, "to_bytes", lambda: [host[i, : out_lens[i]].tobytes()
+                                      for i in range(B)])
     log("decompress steps (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in steps.items()))
+    one, _ = one_c_call(lambda: native.blockcodec.wave_split_batch(
+        comp, max_pieces=64, out_caps=[BLOCK] * B))
+    log(f"split as one C call (no row spans): {one:.3f} ms, against "
+        f"{steps['split']:.3f} ms over {len(native._spans(B))} spans")
 
     # the kernels alone on the main path's device-resident batches
     gpu_enc = encode_cuda.encode_blocks(src, lens, cap_n=BLOCK)
     k_enc = cuda_ms(lambda: encode_cuda.encode_blocks(src, lens, cap_n=BLOCK))
-    comp_t, clens_t = dev_d[0], dev_d[1]
+    comp_t, clens_t, _, _ = to_device_batch(*pack_blocks(
+        comp, cap=max(len(c) for c in comp)), device="cuda")
     k_dec = cuda_ms(lambda: decode_cuda.decode_blocks(comp_t, clens_t,
                                                       cap_out=BLOCK))
     gpu_dec = decode_cuda.decode_blocks(comp_t, clens_t, cap_out=BLOCK)
+    k_wave = cuda_ms(lambda: decode_wave.wave_decode(a_d, n_d))
+    gpu_wave = decode_wave.wave_decode(a_d, n_d)
     log(f"kernel B1 {k_enc:.3f} ms ({mb / k_enc * 1e3:.1f} MB/s), "
-        f"kernel B2 {k_dec:.3f} ms ({mb / k_dec * 1e3:.1f} MB/s) "
-        f"on {len(blocks)} blocks")
+        f"kernel B2 {k_dec:.3f} ms ({mb / k_dec * 1e3:.1f} MB/s), "
+        f"kernel B3 {k_wave:.3f} ms ({mb / k_wave * 1e3:.1f} MB/s) "
+        f"on {B} blocks")
 
     # plain versions on rows of the same batch
-    rows = list(range(0, len(blocks), len(blocks) // 64))[:64]
+    rows = list(range(0, B, B // 64))[:64]
     cpu = [t.cpu() for t in (src, lens)]
     plain_enc = encode_cuda.encode_blocks_plain(cpu[0][rows], cpu[1][rows],
                                                 cap_n=BLOCK)
@@ -282,32 +498,108 @@ def phase_main_path(be):
     plain_dec = decode_cuda.decode_blocks_plain(cpu_out, cpu_cs,
                                                 cap_out=BLOCK)
     dec_err = compare_decode(gpu_dec, plain_dec)
-    log(f"B1 == plain on {len(rows)} main-path rows; "
-        f"B2 == plain on all {len(blocks)} rows")
+    plain_wave = decode_wave.wave_decode_plain(a_h[rows], n_h[rows])
+    wave_err = compare_wave_decode(gpu_wave[rows], plain_wave,
+                                   n_h[rows])
+    log(f"B1 == plain and B3 == plain on {len(rows)} main-path rows; "
+        f"B2 == plain on all {B} rows")
     r8 = rows[:PLAIN_ROWS]
     p_enc, _ = host_ms(lambda: encode_cuda.encode_blocks_plain(
         cpu[0][r8], cpu[1][r8], cap_n=BLOCK))
     p_dec, _ = host_ms(lambda: decode_cuda.decode_blocks_plain(
         cpu_out[r8], cpu_cs[r8], cap_out=BLOCK))
-    log(f"plain B1 {p_enc:.1f} ms, plain B2 {p_dec:.1f} ms "
-        f"on {PLAIN_ROWS} blocks")
+    p_wave, _ = host_ms(lambda: decode_wave.wave_decode_plain(
+        a_h[r8], n_h[r8]))
+    log(f"plain B1 {p_enc:.1f} ms, plain B2 {p_dec:.1f} ms, plain B3 "
+        f"{p_wave:.1f} ms on {PLAIN_ROWS} blocks")
 
-    B = len(blocks)
     enc_bytes = len(data) + csum + B * 12     # src + lens in; out + 2 ints
     dec_bytes = csum + B * 4 + len(data) + B * 8
+    # B3 reads the used part of each piece slot and the lengths, and
+    # writes the decoded bytes
+    arena_read = arena_bytes_read(arenas, out_lens)
+    wave_bytes = arena_read + B * 4 + int(out_lens.sum())
+    log(f"B3 bound: {arena_read} arena bytes read of {arenas.nbytes} "
+        f"allocated, {int(out_lens.sum())} bytes written")
     return {
-        "launches": launches, "enc_ms": k_enc, "dec_ms": k_dec,
-        "plain_enc_ms": p_enc, "plain_dec_ms": p_dec,
+        "launches": launches, "b2_launches": b2_launches, "enc_ms": k_enc,
+        "dec_ms": k_dec,
+        "wave_ms": k_wave, "plain_enc_ms": p_enc, "plain_dec_ms": p_dec,
+        "plain_wave_ms": p_wave,
         "enc_bound_ms": enc_bytes / HBM_BYTES_PER_S * 1e3,
         "dec_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
-        "enc_err": enc_err, "dec_err": dec_err, "blocks": B,
+        "wave_bound_ms": wave_bytes / HBM_BYTES_PER_S * 1e3,
+        "enc_err": enc_err, "dec_err": dec_err, "wave_err": wave_err,
+        "blocks": B,
     }
 
 
+def phase_max_dist(be):
+    """compress_batch(level=1, max_dist=2048): B4 plus the C emitter."""
+    data = real_corpus(CORPUS)
+    blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
+    B = len(blocks)
+    reset_launches()
+    comp = be.compress_batch(blocks, level=1, max_dist=2048)
+    launches = read_launches()
+    if launches["B4"] < 1:
+        raise AssertionError(f"max_dist path skipped B4: {launches}")
+    if be.decompress_batch(comp, [BLOCK] * B) != blocks:
+        raise AssertionError("max_dist streams fail the wave decode")
+    if HostBackend().decompress_batch(comp, [BLOCK] * B) != blocks:
+        raise AssertionError("max_dist streams fail the host C decoder")
+    csum = sum(len(c) for c in comp)
+    mb = len(data) / 1e6
+    e2e = cuda_ms(lambda: be.compress_batch(blocks, level=1, max_dist=2048),
+                  runs=3)
+    log(f"max_dist=2048 path ok: ratio {len(data) / csum:.4f}, compress "
+        f"{mb / e2e * 1e3:.1f} MB/s ({e2e:.3f} ms), launches {launches}, "
+        "round trip through the wave tier and the host C decoder")
+
+    steps = {}
+    n_rows = encode_wave.rows_for(BLOCK)
+    inp, lens = stage(steps, "pack", lambda: encode_wave.pack_input(
+        blocks, n_rows))
+    inp_d, lens_d = stage(steps, "h2d", lambda: (
+        torch.from_numpy(inp).cuda(), torch.from_numpy(lens).cuda()))
+    dec = stage(steps, "B4", lambda: encode_wave.find_matches(
+        inp_d, lens_d, max_dist=2048))
+    dec_h = stage(steps, "d2h", lambda: dec.cpu().numpy())
+    out = stage(steps, "emit", lambda: native.blockcodec.wave_emit_decisions(
+        blocks, dec_h))
+    if out != comp:
+        raise AssertionError("max_dist steps differ from compress_batch")
+    log("max_dist compress steps (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in steps.items()))
+    one, _ = one_c_call(lambda: native.blockcodec.wave_emit_decisions(
+        blocks, dec_h))
+    log(f"emit as one C call (no row spans): {one:.3f} ms, against "
+        f"{steps['emit']:.3f} ms over {len(native._spans(B))} spans")
+
+    k_ms = cuda_ms(lambda: encode_wave.find_matches(inp_d, lens_d,
+                                                    max_dist=2048))
+    rows = list(range(0, B, B // 64))[:64]
+    inp_h, lens_h = torch.from_numpy(inp), torch.from_numpy(lens)
+    plain = encode_wave.find_matches_plain(inp_h[rows], lens_h[rows],
+                                           max_dist=2048)
+    if not torch.equal(dec.cpu()[rows], plain):
+        raise AssertionError("B4 != plain on main-path rows")
+    r8 = rows[:PLAIN_ROWS]
+    p_ms, _ = host_ms(lambda: encode_wave.find_matches_plain(
+        inp_h[r8], lens_h[r8], max_dist=2048))
+    log(f"kernel B4 {k_ms:.3f} ms ({mb / k_ms * 1e3:.1f} MB/s) on {B} "
+        f"blocks; B4 == plain on {len(rows)} rows; plain B4 {p_ms:.1f} ms "
+        f"on {PLAIN_ROWS} blocks")
+    bound = (len(data) + B * 4 + dec.numel() * 4) / HBM_BYTES_PER_S * 1e3
+    return {"launches": launches, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "err": 0}
+
+
 def phase_frames(be):
+    """16 MB frames through the sequential frame layer."""
     data = real_corpus(CORPUS)[: 16 << 20]
     for bsid, independent in ((7, False), (4, True)):
-        before = (encode_cuda.launches, decode_cuda.launches)
+        before = read_launches()
         prefs = Preferences(frame_info=FrameInfo(
             block_size_id=bsid, block_independent=independent,
             block_checksum=True, content_checksum=True))
@@ -316,15 +608,63 @@ def phase_frames(be):
         t_d, back = host_ms(lambda: decompress_frame(frame, backend=be))
         if back != data:
             raise AssertionError(f"frame round trip failed (bsid {bsid})")
-        after = (encode_cuda.launches, decode_cuda.launches)
-        if not (after[0] > before[0] and after[1] > before[1]):
+        after = read_launches()
+        # 4 MB linked blocks decode on B2, 64 KB independent ones on B3
+        dec_kernel = "B3" if independent else "B2"
+        if not (after["B1"] > before["B1"]
+                and after[dec_kernel] > before[dec_kernel]):
             raise AssertionError(f"frame path skipped a kernel: {before} "
                                  f"-> {after}")
         kind = "independent" if independent else "linked"
-        log(f"frame ok: 16 MB, {kind} {FrameInfo(block_size_id=bsid).block_max_size >> 10} KB "
+        log(f"frame ok: 16 MB, {kind} "
+            f"{FrameInfo(block_size_id=bsid).block_max_size >> 10} KB "
             f"blocks, ratio {len(data) / len(frame):.4f}, compress "
             f"{t_c:.1f} ms, decompress {t_d:.1f} ms (host clock, "
-            f"checksums in Python)")
+            f"checksums in C)")
+
+
+def phase_batch_frames(be):
+    """128 streams x 384 KiB through the batch frame surfaces, linked and
+    independent; the linked frames also through the sequential decoder
+    (B2)."""
+    data = real_corpus(CORPUS)
+    size = 384 << 10
+    datas = [data[i: i + size] for i in range(0, 128 * size, size)]
+    mb = len(datas) * size / 1e6
+    reset_launches()
+    for independent in (False, True):
+        seq = frame_batch.sequential_fallbacks
+        t_c, frames = host_ms(lambda: frame_batch.compress_frames_wave(
+            datas, block_independent=independent))
+        t_d, back = host_ms(lambda: frame_batch.decompress_frames_wave(
+            frames))
+        if back != datas:
+            raise AssertionError("batch frames round trip failed")
+        if frame_batch.sequential_fallbacks != seq:
+            raise AssertionError(
+                f"{frame_batch.sequential_fallbacks - seq} batch frames "
+                "left the wave tier")
+        kind = "independent" if independent else "linked"
+        csum = sum(len(f) for f in frames)
+        log(f"batch frames ok: 128 x 384 KiB {kind}, ratio "
+            f"{len(datas) * size / csum:.4f}, compress_frames_wave "
+            f"{t_c:.1f} ms ({mb / t_c * 1e3:.1f} MB/s), "
+            f"decompress_frames_wave {t_d:.1f} ms "
+            f"({mb / t_d * 1e3:.1f} MB/s), sequential fallbacks 0")
+        if not independent:
+            t_s, seq_back = host_ms(lambda: [
+                decompress_frame(f, backend=be) for f in frames])
+            if seq_back != datas:
+                raise AssertionError("sequential decode of batch frames "
+                                     "failed")
+            log(f"the same linked frames through decompress_frame: "
+                f"{t_s:.1f} ms ({mb / t_s * 1e3:.1f} MB/s)")
+    launches = read_launches()
+    for k in ("B2", "B3", "B4"):
+        if launches[k] < 1:
+            raise AssertionError(f"batch frame path skipped {k}: "
+                                 f"{launches}")
+    log(f"batch frame launches {launches}")
 
 
 def main() -> int:
@@ -337,36 +677,54 @@ def main() -> int:
         f" | {kind}")
 
     secs = _build.build()
+    t0 = time.perf_counter()
+    native.load()
+    secs["host C"] = time.perf_counter() - t0
     log("build seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    enc_err, dec_err = phase_kernels_vs_plain()
+    enc_err, dec_err, wave_err, match_err = phase_kernels_vs_plain()
     be = TorchBackend()
     m = phase_main_path(be)
+    md = phase_max_dist(be)
     phase_frames(be)
+    phase_batch_frames(be)
 
+    common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
+              "blocks": m["blocks"], "plain_blocks": PLAIN_ROWS}
     kernels = [
-        {"name": "B1 encode_serial", "route": "cuda",
+        {"name": "B1 encode_serial",
          "source": "lz4_tpu_torch/csrc/encode_serial.cu",
          "replaces": "lz4_tpu/block/encode_pallas.py:54",
-         "launches": m["launches"]["B1"],
+         "launches": m["launches"]["B1"], "path": "main",
          "max_abs_err": max(enc_err, m["enc_err"]),
          "ms": m["enc_ms"], "plain_ms": m["plain_enc_ms"],
-         "bound_ms": m["enc_bound_ms"], "bound_by": "bytes",
-         "library_ms": None, "blocks": m["blocks"],
-         "plain_blocks": PLAIN_ROWS},
-        {"name": "B2 decode_serial", "route": "cuda",
+         "bound_ms": m["enc_bound_ms"], **common},
+        {"name": "B2 decode_serial",
          "source": "lz4_tpu_torch/csrc/decode_serial.cu",
          "replaces": "lz4_tpu/block/decode_pallas.py:74",
-         "launches": m["launches"]["B2"],
+         "launches": m["b2_launches"]["B2"],
+         "path": "main, wave_decode off",
          "max_abs_err": max(dec_err, m["dec_err"]),
          "ms": m["dec_ms"], "plain_ms": m["plain_dec_ms"],
-         "bound_ms": m["dec_bound_ms"], "bound_by": "bytes",
-         "library_ms": None, "blocks": m["blocks"],
-         "plain_blocks": PLAIN_ROWS},
+         "bound_ms": m["dec_bound_ms"], **common},
+        {"name": "B3 decode_wave",
+         "source": "lz4_tpu_torch/csrc/decode_wave.cu",
+         "replaces": "lz4_tpu/block/decode_wave.py:82",
+         "launches": m["launches"]["B3"], "path": "main",
+         "max_abs_err": max(wave_err, m["wave_err"]),
+         "ms": m["wave_ms"], "plain_ms": m["plain_wave_ms"],
+         "bound_ms": m["wave_bound_ms"], **common},
+        {"name": "B4 encode_wave",
+         "source": "lz4_tpu_torch/csrc/encode_wave.cu",
+         "replaces": "lz4_tpu/block/encode_wave.py:94",
+         "launches": md["launches"]["B4"], "path": "max_dist",
+         "max_abs_err": max(match_err, md["err"]),
+         "ms": md["ms"], "plain_ms": md["plain_ms"],
+         "bound_ms": md["bound_ms"], **common},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -34,6 +34,9 @@ KERNELS = {
                        _I, _P)),
     "decode_serial": ("lz4t_decode_serial",
                       (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "decode_wave": ("lz4t_decode_wave", (_P, _P, _P, _P, _I, _I, _P)),
+    "encode_wave": ("lz4t_encode_wave",
+                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

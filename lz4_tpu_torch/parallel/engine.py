@@ -2,10 +2,19 @@
 of `lz4_tpu.parallel.engine.TpuBackend`.
 
 The frame layer hands it whole lists of blocks; each list becomes one
-padded batch and one kernel launch (B1 to compress, B2 to decompress),
-with one block per CTA or warp. Every table the kernels use is fresh per
-block, so a batch of any size gives every block the same result, and
-there is no fixed dispatch width to pad to.
+padded batch and one kernel launch, with one block per CTA, warp or
+thread. Every table the kernels use is fresh per block, so a batch of any
+size gives every block the same result, and there is no fixed dispatch
+width to pad to. The routes, as in `TpuBackend`:
+
+- decompress, no dict and every block <= 64 KB (`wave_decode`): the host
+  C wave splitter, then one B3 launch. A stream the splitter rejects
+  sends the batch to `HostBackend`, which raises the canonical error
+  (counted in `host_fallbacks`). Everything else: B2.
+- compress, `max_dist` < 65535: level < 2, no dict and every block <=
+  64 KB run B4 plus the host C emitter (`wave_encode`; B1 with its cap
+  when it is off); anything else goes to `HostBackend`, which raises for
+  HC levels. Otherwise level <= 1 runs on B1.
 
 Blocks above the 64 KB tier are encoded as linked 64 KB segments (each
 sees the 64 KB before it as history) and folded back into one LZ4 block
@@ -15,11 +24,13 @@ are plain distances and stay valid across the merge.
 """
 from __future__ import annotations
 
-from lz4_tpu_torch.block.backend import BlockDecodeError
+from lz4_tpu_torch.block.backend import BlockDecodeError, HostBackend
 from lz4_tpu_torch.block.batch import (DICT_CAP, pack_blocks,
                                        resolve_device, to_device_batch)
 from lz4_tpu_torch.block.decode_cuda import decode_blocks
+from lz4_tpu_torch.block.decode_wave import wave_decode_batch
 from lz4_tpu_torch.block.encode_cuda import encode_blocks
+from lz4_tpu_torch.block.encode_wave import HASH_BITS, encode_wave_batch
 
 SEG = 65536
 
@@ -87,13 +98,24 @@ def merge_segment_streams(block_src: bytes, streams, trailings) -> bytes:
 
 class TorchBackend:
     """BlockBackend (lz4_tpu_torch.block.backend protocol) running block
-    batches through kernels B1 and B2 on `device` (the GPU when None; it
+    batches through kernels B1-B4 on `device` (the GPU when None; it
     raises where there is none). On a CPU device the same calls run the
     kernels' plain PyTorch versions. The fast tier only: levels >= 2
-    raise NotImplementedError."""
+    raise NotImplementedError (with `max_dist` < 65535, ValueError).
+
+    `wave_decode` and `wave_encode` switch the wave routes (module
+    docstring). `wave_decoded` and `wave_encoded` count the batches each
+    served; `host_fallbacks` counts the batches the wave splitter
+    rejected."""
+
+    wave_decode = True
+    wave_encode = True
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+        self.wave_decoded = 0
+        self.wave_encoded = 0
+        self.host_fallbacks = 0
 
     def _encode(self, blocks, dict_prefixes, *, cap_n, has_dict,
                 acceleration, max_dist):
@@ -141,6 +163,12 @@ class TorchBackend:
                        max_dist=65535):
         if not blocks:
             return []
+        if max_dist < 65535:
+            return self._compress_maxd(blocks, level=level,
+                                       acceleration=acceleration,
+                                       dict_prefixes=dict_prefixes,
+                                       favor_dec_speed=favor_dec_speed,
+                                       max_dist=max_dist)
         if level >= 2:
             raise NotImplementedError(
                 f"lz4_tpu_torch: level {level} is an HC level, which is not "
@@ -157,11 +185,56 @@ class TorchBackend:
                               max_dist=max_dist)
         return out
 
+    def _compress_maxd(self, blocks, *, level, acceleration, dict_prefixes,
+                       favor_dec_speed, max_dist):
+        """Distance-capped compression (lz4_tpu engine.py:608-636)."""
+        if (level < 2 and not (dict_prefixes and any(dict_prefixes))
+                and max(len(b) for b in blocks) <= SEG):
+            if self.wave_encode:
+                self.wave_encoded += 1
+                hb = 9 if acceleration > 1 else HASH_BITS
+                return encode_wave_batch(blocks, max_dist=max_dist,
+                                         hash_bits=hb, device=self.device)
+            out, _ = self._encode(blocks, None,
+                                  cap_n=_pad_cap(max(len(b) for b in blocks)),
+                                  has_dict=False, acceleration=acceleration,
+                                  max_dist=max_dist)
+            return out
+        return HostBackend().compress_batch(
+            blocks, level=level, acceleration=acceleration,
+            dict_prefixes=dict_prefixes, favor_dec_speed=favor_dec_speed,
+            max_dist=max_dist)
+
+    def decompress_batch_wave(self, blocks, max_outs):
+        """No-dict <= 64 KB batch on the wave tier (lz4_tpu engine.py:
+        774-803): one C `wave_split_batch` call, then one B3 launch.
+        Returns None when the splitter rejects a stream."""
+        from lz4_tpu_torch.native import blockcodec
+        # shape family {4, 16, 64} pieces, as in the reference
+        need = -(-max(max_outs) // 1024)
+        NP = 4
+        while NP < need:
+            NP *= 4
+        r = blockcodec.wave_split_batch(blocks, max_pieces=NP,
+                                        out_caps=list(max_outs))
+        if r is None:
+            return None
+        arenas, out_lens = r
+        return wave_decode_batch(arenas, out_lens, device=self.device)
+
     def decompress_batch(self, blocks, max_outs, *, dict_prefixes=None):
         if not blocks:
             return []
         has_dict = dict_prefixes is not None and any(
             d for d in dict_prefixes)
+        if self.wave_decode and not has_dict and max(max_outs) <= SEG:
+            out = self.decompress_batch_wave(blocks, max_outs)
+            if out is not None:
+                self.wave_decoded += 1
+                return out
+            # the strict host decoder raises the canonical error
+            self.host_fallbacks += 1
+            return HostBackend().decompress_batch(blocks, max_outs)
         # one output tier covers the batch; reads past the longest stream
         # read 0, so the input row needs no compress_bound padding
         cap_out = _pad_cap(max(max_outs))

@@ -4,7 +4,10 @@ Implements the published XXH32 specification (the algorithm is public:
 https://github.com/Cyan4973/xxHash/blob/dev/doc/xxhash_spec.md). Used for
 the LZ4 frame header-checksum byte, optional block checksums and the
 content checksum. Two forms: a one-shot function and a streaming
-accumulator. The batched device XXH32 is a later kernel of the port.
+accumulator, both on the host C tier (`lz4_tpu_torch.native`, which
+raises when it cannot be built). `xxh32_plain` is the same function in
+Python, kept as the plain version the tests hold the C one against. The
+batched device XXH32 is a later kernel of the port.
 """
 from __future__ import annotations
 
@@ -72,7 +75,13 @@ def _merge(accs: list[int]) -> int:
 
 
 def xxh32(data, seed: int = 0) -> int:
-    """One-shot XXH32 of a bytes-like object."""
+    """One-shot XXH32 of a bytes-like object (in C)."""
+    from lz4_tpu_torch.native import xxh
+    return xxh.xxh32(data, seed)
+
+
+def xxh32_plain(data, seed: int = 0) -> int:
+    """One-shot XXH32 in Python (the plain version of `xxh32`)."""
     data = bytes(data)
     n = len(data)
     seed &= _M32
@@ -105,8 +114,9 @@ class XXH32State:
         data = self._buf + data
         nstripes = len(data) // 16
         if nstripes:
+            from lz4_tpu_torch.native import xxh
             self._large = True
-            self._acc = _stripes(self._acc, data)
+            self._acc = xxh.xxh32_rounds(data[: nstripes * 16], self._acc)
         self._buf = data[nstripes * 16:]
 
     def digest(self) -> int:

@@ -1,4 +1,4 @@
-"""Kernels B1 and B2 against their plain PyTorch versions on the card.
+"""Kernels B1-B4 against their plain PyTorch versions on the card.
 
 These need an NVIDIA GPU with nvcc and skip elsewhere. On a machine with
 the card (and without JAX, which tests/conftest.py imports) run:
@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from lz4_tpu_torch.block import decode_cuda, encode_cuda
+from lz4_tpu_torch.block import decode_cuda, decode_wave, encode_cuda
+from lz4_tpu_torch.block import encode_wave
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
+from lz4_tpu_torch.native import blockcodec
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.utils.datagen import gen_buffer, gen_text
 
@@ -131,3 +133,102 @@ def test_wrappers_raise_on_wrong_layout(cuda):
         encode_cuda.encode_blocks(src, lens.cpu(), cap_n=128)
     with pytest.raises(TypeError):
         decode_cuda.decode_blocks(src, lens.to(torch.int64), cap_out=128)
+
+
+def _wave_both(cuda, arenas, out_lens, hist=None, rows=None):
+    a, n = torch.from_numpy(arenas), torch.from_numpy(out_lens)
+    h = None if hist is None else torch.from_numpy(hist)
+    gpu = decode_wave.wave_decode(a.to(cuda), n.to(cuda),
+                                  None if h is None else h.to(cuda)).cpu()
+    plain = decode_wave.wave_decode_plain(a, n, h)
+    for i in (range(len(out_lens)) if rows is None else rows):
+        k = int(out_lens[i])
+        assert torch.equal(gpu[i, :k], plain[i, :k]), i
+    return gpu
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_b3_random_and_mutated_arenas(cuda, seed):
+    rng = np.random.default_rng(200 + seed)
+    blocks = _random_blocks(rng, 24, 65536)
+    streams = [blockcodec.compress(b) if i % 3 else
+               blockcodec.compress_hc(b, 9) for i, b in enumerate(blocks)]
+    arenas, out_lens = blockcodec.wave_split_batch(streams, max_pieces=64)
+    gpu = _wave_both(cuda, arenas, out_lens)
+    for i, b in enumerate(blocks):
+        assert gpu[i, : len(b)].numpy().tobytes() == b
+    # garbage in half the arenas stays inside its own rows
+    bad = arenas.copy()
+    for i in range(0, len(bad), 2):
+        for _ in range(50):
+            bad[i, rng.integers(0, 64), rng.integers(0, 1088)] = \
+                rng.integers(0, 256)
+    hist = rng.integers(0, 256, (len(bad), 65536), dtype=np.uint8)
+    _wave_both(cuda, bad, out_lens, hist, rows=range(1, len(bad), 2))
+    torch.cuda.synchronize()
+
+
+def test_b3_linked_matches_plain(cuda):
+    data = [gen_text(200000, seed=s) for s in range(3)] + [
+        gen_buffer(150000, 0.8, seed=9)]
+    streams = []
+    for d in data:
+        blocks = [d[i: i + 65536] for i in range(0, len(d), 65536)]
+        streams.append([blockcodec.compress(
+            b, dict_prefix=d[max(0, k * 65536 - 65536): k * 65536] or None)
+            for k, b in enumerate(blocks)])
+    gpu = decode_wave.wave_decode_linked(streams, device=cuda)
+    assert gpu == decode_wave.wave_decode_linked(streams, device="cpu")
+    assert gpu == data
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_b4_random_and_mutated(cuda, seed):
+    rng = np.random.default_rng(300 + seed)
+    blocks = _random_blocks(rng, 12, 65536)
+    blocks += [bytes(c ^ int(rng.integers(0, 2)) for c in b[:5000])
+               for b in blocks[:4]]
+    n_rows = encode_wave.rows_for(max(len(b) for b in blocks))
+    inp, lens = (torch.from_numpy(a)
+                 for a in encode_wave.pack_input(blocks, n_rows))
+    hb = int(rng.integers(9, 13))
+    md = int(rng.choice([1024, 2048, 65535, int(rng.integers(1, 65535))]))
+    gpu = encode_wave.find_matches(inp.to(cuda), lens.to(cuda),
+                                   max_dist=md, hash_bits=hb).cpu()
+    plain = encode_wave.find_matches_plain(inp, lens, max_dist=md,
+                                           hash_bits=hb)
+    assert torch.equal(gpu, plain), (hb, md)
+    wr = encode_wave.history_rows(md, n_rows)
+    hist = torch.from_numpy(rng.integers(0, 256, (len(blocks), wr * 4),
+                                         dtype=np.uint8))
+    hlen = torch.from_numpy(rng.integers(0, wr * 4 + 1, len(blocks),
+                                         dtype=np.int32))
+    hlen[0] = wr * 4
+    gpu = encode_wave.find_matches(inp.to(cuda), lens.to(cuda),
+                                   hist.to(cuda), hlen.to(cuda),
+                                   max_dist=md, hash_bits=hb).cpu()
+    plain = encode_wave.find_matches_plain(inp, lens, hist, hlen,
+                                           max_dist=md, hash_bits=hb)
+    assert torch.equal(gpu, plain), (hb, md, "linked")
+
+
+def test_b4_linked_streams_match_plain(cuda):
+    data = [gen_text(150000, seed=11), gen_buffer(130000, 0.7, seed=12)]
+    streams = [[d[i: i + 65536] for i in range(0, len(d), 65536)]
+               for d in data]
+    for md in (2048, 65535):
+        gpu = encode_wave.encode_wave_linked(streams, max_dist=md,
+                                             device=cuda)
+        assert gpu == encode_wave.encode_wave_linked(streams, max_dist=md,
+                                                     device="cpu")
+
+
+def test_backend_wave_routes_on_card(cuda):
+    data = gen_text(300000, seed=7) + gen_buffer(200000, 0.7, seed=8)
+    blocks = [data[i: i + 65536] for i in range(0, len(data), 65536)]
+    gpu, cpu = TorchBackend(cuda), TorchBackend("cpu")
+    capped = gpu.compress_batch(blocks, max_dist=2048)
+    assert capped == cpu.compress_batch(blocks, max_dist=2048)
+    n = decode_wave.launches
+    assert gpu.decompress_batch(capped, [65536] * len(blocks)) == blocks
+    assert decode_wave.launches == n + 1 and gpu.host_fallbacks == 0

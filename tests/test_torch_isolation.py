@@ -11,9 +11,14 @@ import pytest
 import torch
 
 import lz4_tpu_torch
-from lz4_tpu_torch import _build
+from lz4_tpu_torch import _build, native
+from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.decode_cuda import decode_blocks
+from lz4_tpu_torch.block.decode_wave import wave_decode_batch
 from lz4_tpu_torch.block.encode_cuda import encode_blocks
+from lz4_tpu_torch.block.encode_wave import find_matches_batch
+from lz4_tpu_torch.frame.batch import (compress_frames_wave,
+                                       decompress_frames_wave)
 from lz4_tpu_torch.parallel.engine import TorchBackend
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -73,6 +78,28 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         encode_blocks(src, lens, cap_n=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decode_blocks(src, lens, cap_out=64)
+    arenas = np.zeros((2, 4, 1088), np.uint8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        wave_decode_batch(arenas, lens)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        find_matches_batch([b"abc" * 100])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compress_frames_wave([b"abc" * 100])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decompress_frames_wave([b""])
+
+
+def test_native_is_checked_for_imports():
+    assert "lz4_tpu_torch.native" in _modules()
+    assert PKG / "native" / "__init__.py" in _port_files()
+
+
+def test_host_backend_raises_without_a_compiler(monkeypatch, tmp_path):
+    monkeypatch.setenv("CC", str(tmp_path / "no-such-cc"))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_LIB", None)
+    with pytest.raises(RuntimeError, match="C build failed"):
+        HostBackend()
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
