@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from lz4_tpu_torch/csrc with nvcc (all at once)
-and the host C library with cc, holds each kernel (B1-B4) against its
+and the host C library with cc, holds each kernel (B1-B6) against its
 plain PyTorch version on the card, then drives the port's paths through
 the entry points a user calls, each with every launch count set to 0
 just before it and read just after:
@@ -18,7 +18,14 @@ just before it and read just after:
 - frames: 16 MB linked and independent frames through the sequential
   frame layer (B1, B2 for linked blocks, B3), and 128 streams x 384 KiB
   through the batch frame surfaces (B4, B3), linked frames also through
-  the sequential decoder (B2).
+  the sequential decoder (B2);
+- the HC path: `TorchBackend.compress_batch(level=L)`, L = 3 and 9, over
+  the 48 MB corpus in 64 KB blocks (one B5 launch each), byte-identical
+  to the host C `compress_hc` and round-tripped;
+- the CLI in process: `-9 -B4` (B5), `-d` and `-t` on a 16 MB file, and
+  a default `-1` round trip;
+- the port's bench at 8 MB and 1 s per timed loop (its round-trip check
+  runs B6).
 
 Any failure raises. The last line is {"ok": true, "device": {...}}; the
 line before it is the card's name and power limit, and before that a
@@ -26,17 +33,22 @@ line before it is the card's name and power limit, and before that a
 """
 from __future__ import annotations
 
+import contextlib
+import filecmp
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from lz4_tpu_torch import _build, native
+from lz4_tpu_torch import _build, bench, cli, native, xxh32_device
 from lz4_tpu_torch.block import (decode_cuda, decode_wave, encode_cuda,
-                                 encode_wave)
+                                 encode_hc, encode_wave)
 from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
 from lz4_tpu_torch.frame import batch as frame_batch
@@ -52,7 +64,8 @@ BLOCK = 65536
 CORPUS = 48 << 20
 PLAIN_ROWS = 8
 KERNELS = {"B1": encode_cuda, "B2": decode_cuda, "B3": decode_wave,
-           "B4": encode_wave}
+           "B4": encode_wave, "B5": encode_hc, "B6": xxh32_device}
+HC_PLAIN_ROWS = 2
 
 
 def log(*a):
@@ -667,6 +680,198 @@ def phase_batch_frames(be):
     log(f"batch frame launches {launches}")
 
 
+def compare_hc(gpu, plain, what):
+    """B5 vs plain: identical csizes, trailing and out[:csize]."""
+    go, gc, gt = (x.cpu() for x in gpu)
+    po, pc, pt = plain
+    if not (torch.equal(gc, pc) and torch.equal(gt, pt)):
+        bad = ((gc != pc) | (gt != pt)).nonzero().flatten().tolist()
+        raise AssertionError(f"B5 csizes/trailing differ at rows {bad[:8]} "
+                             f"({what})")
+    for i, n in enumerate(pc.tolist()):
+        if not torch.equal(go[i, :n], po[i, :n]):
+            raise AssertionError(f"B5 output bytes differ in row {i} ({what})")
+
+
+def phase_hc_xxh_vs_plain():
+    """B5 at levels 3, 5, 9 with favor_dec_speed on and off, and B6 with
+    seeds 0 and 2^32-1, each against its plain version."""
+    rng = np.random.default_rng(2027)
+    cap = 16384
+    rows = [gen_text(cap, seed=21), b"\xab" * 9000, bytes(cap),
+            b"abab" * 2000 + b"Q" + b"abab" * 1000, rng.bytes(6000),
+            gen_text(200, seed=22), b"abcabcabcab", b"",
+            gen_buffer(cap, 0.97, seed=23)]
+    src, lens, _, _ = pack_blocks(rows, cap=cap)
+    src_t, lens_t = torch.from_numpy(src), torch.from_numpy(lens)
+    for level in (3, 5, 9):
+        for favor in (False, True):
+            kw = dict(cap_n=cap, level=level, favor_dec_speed=favor)
+            gpu = encode_hc.encode_blocks_hc(src_t.cuda(), lens_t.cuda(), **kw)
+            torch.cuda.synchronize()
+            compare_hc(gpu, encode_hc.encode_blocks_hc_plain(src_t, lens_t,
+                                                             **kw),
+                       f"level {level}, favor {favor}")
+    log(f"B5 == plain: {len(rows)} rows (text, RLE, zeros, periodic, "
+        "random, short, under 13 bytes, empty), levels 3/5/9, "
+        "favor_dec_speed off and on")
+
+    xxh_err = 0
+    for cap in (16, 4096, 65536):
+        lens = [int(k) for k in rng.integers(0, cap + 1, 30)]
+        lens += [0, 1, min(15, cap), cap - 1, cap]
+        data, lens_a, _, _ = pack_blocks([rng.bytes(k) for k in lens],
+                                         cap=cap)
+        d, n = torch.from_numpy(data), torch.from_numpy(lens_a)
+        for seed in (0, 0xFFFFFFFF):
+            gpu = xxh32_device.xxh32_blocks(d.cuda(), n.cuda(), seed,
+                                            cap=cap).cpu()
+            plain = xxh32_device.xxh32_blocks_plain(d, n, seed, cap=cap)
+            xxh_err = max(xxh_err, int((gpu - plain).abs().max()))
+            if xxh_err:
+                raise AssertionError(f"B6 differs from plain (cap {cap}, "
+                                     f"seed {seed})")
+    log("B6 == plain: rows of random lengths 0..cap (cap 16, 4096, "
+        "65536), seeds 0 and 0xFFFFFFFF")
+    return 0, xxh_err
+
+
+def phase_hc_path(be):
+    """compress_batch(level=3 and 9) over the 48 MB corpus: one B5 launch
+    each, byte-identical to the host C compress_hc, round-tripped."""
+    data = real_corpus(CORPUS)
+    blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
+    B = len(blocks)
+    mb = len(data) / 1e6
+    host = HostBackend()
+    res = {}
+    for level in (3, 9):
+        hc0 = be.hc_encoded
+        reset_launches()
+        comp = be.compress_batch(blocks, level=level)
+        launches = read_launches()
+        if launches["B5"] != 1 or be.hc_encoded != hc0 + 1 or \
+                sum(launches.values()) != 1:
+            raise AssertionError(f"HC level {level} path did not run one B5 "
+                                 f"launch: {launches}")
+        t_host, want = host_ms(lambda: host.compress_batch(blocks,
+                                                           level=level))
+        bad = [i for i in range(B) if comp[i] != want[i]]
+        if bad:
+            raise AssertionError(f"B5 level {level} differs from C "
+                                 f"compress_hc in blocks {bad[:8]}")
+        if be.decompress_batch(comp, [BLOCK] * B) != blocks:
+            raise AssertionError(f"HC level {level} round trip differs")
+        csum = sum(len(c) for c in comp)
+        e2e = cuda_ms(lambda: be.compress_batch(blocks, level=level), runs=2)
+        log(f"HC level {level} path ok: {B} blocks byte-identical to C "
+            f"compress_hc ({t_host:.1f} ms on the host), round trip ok, "
+            f"ratio {len(data) / csum:.4f}, compress {mb / e2e * 1e3:.1f} "
+            f"MB/s ({e2e:.3f} ms), launches {launches}")
+
+        steps = {}
+        src, lens, _, _ = stage(steps, "pack", lambda: pack_blocks(
+            blocks, cap=BLOCK))
+        src_d, lens_d, _, _ = stage(steps, "h2d", lambda: to_device_batch(
+            src, lens, device="cuda"))
+        out = stage(steps, "B5", lambda: encode_hc.encode_blocks_hc(
+            src_d, lens_d, cap_n=BLOCK, level=level))
+        host_out = stage(steps, "d2h", lambda: (out[0].cpu().numpy(),
+                                                out[1].cpu().tolist()))
+        stage(steps, "to_bytes", lambda: [
+            host_out[0][i, : host_out[1][i]].tobytes() for i in range(B)])
+        log(f"HC level {level} compress steps (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in steps.items()))
+        k_ms = cuda_ms(lambda: encode_hc.encode_blocks_hc(
+            src_d, lens_d, cap_n=BLOCK, level=level), runs=3)
+        rows = list(range(0, B, B // HC_PLAIN_ROWS))[:HC_PLAIN_ROWS]
+        src_c, lens_c = torch.from_numpy(src), torch.from_numpy(lens)
+        p_ms, plain = host_ms(lambda: encode_hc.encode_blocks_hc_plain(
+            src_c[rows], lens_c[rows], cap_n=BLOCK, level=level))
+        compare_hc(tuple(x[rows] for x in out), plain,
+                   f"main-path rows, level {level}")
+        log(f"kernel B5 level {level}: {k_ms:.3f} ms ({mb / k_ms * 1e3:.1f} "
+            f"MB/s) on {B} blocks; B5 == plain on {len(rows)} rows; plain "
+            f"{p_ms:.1f} ms on {len(rows)} rows")
+        nbytes = len(data) + B * 4 + csum + B * 8
+        res[level] = {"launches": launches, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "err": 0, "plain_rows": len(rows)}
+
+    # B6 on the same device-resident batch (the bench's check, full size)
+    lens_full = torch.full((B,), BLOCK, dtype=torch.int32, device="cuda")
+    x_ms = cuda_ms(lambda: xxh32_device.xxh32_blocks(src_d, lens_full,
+                                                     cap=BLOCK), runs=10)
+    got = xxh32_device.xxh32_blocks(src_d, lens_full, cap=BLOCK).cpu()
+    want = torch.tensor([native.xxh.xxh32(b) for b in blocks])
+    if not torch.equal(got, want):
+        raise AssertionError("B6 differs from host XXH32 on the main path")
+    r8 = list(range(PLAIN_ROWS))
+    p_ms, plain = host_ms(lambda: xxh32_device.xxh32_blocks_plain(
+        src_c[r8], lens_c[r8], cap=BLOCK))
+    err = int((got[r8] - plain).abs().max())
+    if err:
+        raise AssertionError("B6 differs from plain on main-path rows")
+    log(f"kernel B6: {x_ms:.4f} ms on {B} blocks of {BLOCK} "
+        f"({mb / x_ms * 1e3:.1f} MB/s), == host XXH32 on every block, == "
+        f"plain on {PLAIN_ROWS} rows; plain {p_ms:.1f} ms on {PLAIN_ROWS} "
+        "rows")
+    res["xxh"] = {"ms": x_ms, "plain_ms": p_ms, "err": err,
+                  "bound_ms": (len(data) + B * 12) / HBM_BYTES_PER_S * 1e3}
+    return res
+
+
+def phase_cli():
+    """The CLI in process on a 16 MB file: -9 -B4 (B5), -d, -t, and a
+    default -1 round trip; the files are compared byte for byte."""
+    data = real_corpus(CORPUS)[: 16 << 20]
+    with tempfile.TemporaryDirectory() as tdir:
+        src = os.path.join(tdir, "corpus16.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+        for flags in (["-9", "-B4"], ["-1"]):
+            dst = os.path.join(tdir, "c.lz4")
+            out = os.path.join(tdir, "c.out")
+            reset_launches()
+            t_c, rc = host_ms(lambda: cli.main(["lz4", "-f", *flags, src,
+                                                dst]))
+            on_compress = read_launches()
+            t_d, rc_d = host_ms(lambda: cli.main(["lz4", "-d", "-f", dst,
+                                                  out]))
+            t_t, rc_t = host_ms(lambda: cli.main(["lz4", "-t", dst]))
+            if (rc, rc_d, rc_t) != (0, 0, 0):
+                raise AssertionError(f"CLI {flags} exit codes {rc, rc_d, rc_t}")
+            if not filecmp.cmp(src, out, shallow=False):
+                raise AssertionError(f"CLI {flags} round trip differs (cmp)")
+            want = "B5" if flags[0] == "-9" else "B1"
+            if on_compress[want] < 1:
+                raise AssertionError(f"CLI {flags} compress skipped {want}: "
+                                     f"{on_compress}")
+            size = os.path.getsize(dst)
+            log(f"CLI {' '.join(flags)}: 16 MB -> {size} bytes (ratio "
+                f"{len(data) / size:.4f}); compress {t_c:.1f} ms, -d "
+                f"{t_d:.1f} ms, -t {t_t:.1f} ms (host clock, whole calls); "
+                f"cmp ok; launches {read_launches()}")
+
+
+def phase_bench():
+    """The port's bench in process at 8 MB, 1 s per timed loop."""
+    reset_launches()
+    buf = io.TextIOWrapper(io.BytesIO(), encoding="utf-8")
+    with contextlib.redirect_stdout(buf):
+        r = bench.main(mb=8, seconds=1.0)
+    launches = read_launches()
+    buf.flush()
+    line = buf.buffer.getvalue().decode().strip().splitlines()[-1]
+    if json.loads(line) != r or r["detail"]["device"] != "cuda":
+        raise AssertionError(f"bench printed an unexpected line: {line}")
+    if launches["B6"] < 1:
+        raise AssertionError(f"bench skipped B6: {launches}")
+    log(f"bench (8 MB, 1 s): {line}")
+    log(f"bench launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -687,11 +892,15 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     enc_err, dec_err, wave_err, match_err = phase_kernels_vs_plain()
+    hc_err, xxh_err = phase_hc_xxh_vs_plain()
     be = TorchBackend()
     m = phase_main_path(be)
     md = phase_max_dist(be)
     phase_frames(be)
     phase_batch_frames(be)
+    hc = phase_hc_path(be)
+    phase_cli()
+    bench_launches = phase_bench()
 
     common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
               "blocks": m["blocks"], "plain_blocks": PLAIN_ROWS}
@@ -725,6 +934,22 @@ def main() -> int:
          "max_abs_err": max(match_err, md["err"]),
          "ms": md["ms"], "plain_ms": md["plain_ms"],
          "bound_ms": md["bound_ms"], **common},
+        {"name": "B5 encode_hc",
+         "source": "lz4_tpu_torch/csrc/encode_hc.cu",
+         "replaces": "lz4_tpu/block/encode_hc_pallas.py:67",
+         "launches": hc[9]["launches"]["B5"], "path": "hc, level 9",
+         "max_abs_err": max(hc_err, hc[9]["err"], hc[3]["err"]),
+         "ms": hc[9]["ms"], "plain_ms": hc[9]["plain_ms"],
+         "bound_ms": hc[9]["bound_ms"], "level3_ms": hc[3]["ms"],
+         "level3_launches": hc[3]["launches"]["B5"],
+         **common, "plain_blocks": hc[9]["plain_rows"]},
+        {"name": "B6 xxh32",
+         "source": "lz4_tpu_torch/csrc/xxh32.cu",
+         "replaces": "lz4_tpu/xxh32_device.py:90",
+         "launches": bench_launches["B6"], "path": "bench",
+         "max_abs_err": max(xxh_err, hc["xxh"]["err"]),
+         "ms": hc["xxh"]["ms"], "plain_ms": hc["xxh"]["plain_ms"],
+         "bound_ms": hc["xxh"]["bound_ms"], **common},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

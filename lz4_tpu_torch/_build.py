@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 #: source name -> (C entry point, its argument types); every entry point
 #: returns the launch's cudaError_t
 KERNELS = {
@@ -37,6 +38,9 @@ KERNELS = {
     "decode_wave": ("lz4t_decode_wave", (_P, _P, _P, _P, _I, _I, _P)),
     "encode_wave": ("lz4t_encode_wave",
                     (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "encode_hc": ("lz4t_encode_hc", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P)),
+    "xxh32": ("lz4t_xxh32_blocks", (_P, _P, _P, _I, _I, _U, _P)),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -90,6 +90,8 @@ def _configure(lib: ctypes.CDLL) -> None:
                                           ctypes.c_int, _L]),
         "lz4t_compress_hc": (_L, [_CP, _L, _CP, _L, _L, ctypes.c_int,
                                   ctypes.c_int]),
+        "lz4t_compress_lazy": (_L, [_CP, _L, _CP, _L, _L, ctypes.c_int,
+                                    ctypes.c_int]),
         "lz4t_decompress_block": (_L, [_CP, _L, _CP, _L, _CP, _L]),
         "lz4t_compress_batch": (_L, [ctypes.POINTER(_CP), _I32P, _L, _P,
                                      _L, _I32P, ctypes.c_int]),
@@ -212,6 +214,22 @@ class _BlockCodec:
                                        level, 1 if favor_dec_speed else 0)
         if n <= 0:
             raise RuntimeError("C HC compression failed")
+        return dst.raw[:n]
+
+    def compress_lazy(self, data: bytes, tries: int,
+                      dict_prefix: bytes | None = None,
+                      favor_dec_speed: bool = False) -> bytes:
+        """The lazy hash-chain tier at an explicit search depth
+        (`compress_lazy` in hccodec.c): the byte oracle of kernel B5 at
+        any depth, with or without `favor_dec_speed`."""
+        data = bytes(data)
+        _buf, src, dlen = _with_history(data, dict_prefix)
+        cap = compress_bound(len(data))
+        dst = ctypes.create_string_buffer(cap)
+        n = self._lib.lz4t_compress_lazy(src, len(data), dst, cap, dlen,
+                                         tries, 1 if favor_dec_speed else 0)
+        if n <= 0:
+            raise RuntimeError("C lazy compression failed")
         return dst.raw[:n]
 
     def decompress(self, comp: bytes, max_out: int,

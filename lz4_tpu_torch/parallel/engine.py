@@ -14,7 +14,15 @@ width to pad to. The routes, as in `TpuBackend`:
 - compress, `max_dist` < 65535: level < 2, no dict and every block <=
   64 KB run B4 plus the host C emitter (`wave_encode`; B1 with its cap
   when it is off); anything else goes to `HostBackend`, which raises for
-  HC levels. Otherwise level <= 1 runs on B1.
+  HC levels.
+- compress, HC levels: levels 3-9 of a no-dict batch whose largest block
+  lies in [`min_device_size`, 64 KB], without `favor_dec_speed`, run on
+  B5, one launch per batch (counted in `hc_encoded`). Level 2 (the JAX
+  package's sort/scan tier, not ported yet), levels 10-12, dict batches,
+  larger or smaller blocks and `favor_dec_speed` go to `HostBackend`.
+- compress, level <= 1: B1, unless the largest block is under
+  `min_device_size` or over `max_device_size`; those batches go to
+  `HostBackend`, as in `TpuBackend`.
 
 Blocks above the 64 KB tier are encoded as linked 64 KB segments (each
 sees the 64 KB before it as history) and folded back into one LZ4 block
@@ -30,9 +38,12 @@ from lz4_tpu_torch.block.batch import (DICT_CAP, pack_blocks,
 from lz4_tpu_torch.block.decode_cuda import decode_blocks
 from lz4_tpu_torch.block.decode_wave import wave_decode_batch
 from lz4_tpu_torch.block.encode_cuda import encode_blocks
+from lz4_tpu_torch.block.encode_hc import encode_blocks_hc
 from lz4_tpu_torch.block.encode_wave import HASH_BITS, encode_wave_batch
 
 SEG = 65536
+#: HC levels served by kernel B5 (`lz4_tpu` engine.py:576)
+HC_DEVICE_LEVELS = range(3, 10)
 
 
 def _pad_cap(n: int, floor: int = 65536) -> int:
@@ -98,23 +109,28 @@ def merge_segment_streams(block_src: bytes, streams, trailings) -> bytes:
 
 class TorchBackend:
     """BlockBackend (lz4_tpu_torch.block.backend protocol) running block
-    batches through kernels B1-B4 on `device` (the GPU when None; it
+    batches through kernels B1-B5 on `device` (the GPU when None; it
     raises where there is none). On a CPU device the same calls run the
-    kernels' plain PyTorch versions. The fast tier only: levels >= 2
-    raise NotImplementedError (with `max_dist` < 65535, ValueError).
+    kernels' plain PyTorch versions. The routes are the module
+    docstring's; `min_device_size` and `max_device_size` bound the
+    largest block of a batch sent to B1 (and `min_device_size` that of
+    one sent to B5), defaulting as in `TpuBackend`.
 
-    `wave_decode` and `wave_encode` switch the wave routes (module
-    docstring). `wave_decoded` and `wave_encoded` count the batches each
-    served; `host_fallbacks` counts the batches the wave splitter
-    rejected."""
+    `wave_decode` and `wave_encode` switch the wave routes. `wave_decoded`,
+    `wave_encoded` and `hc_encoded` count the batches each route served;
+    `host_fallbacks` counts the batches the wave splitter rejected."""
 
     wave_decode = True
     wave_encode = True
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, min_device_size: int = 4096,
+                 max_device_size: int = 4 * 1024 * 1024):
         self.device = resolve_device(device)
+        self.min_device_size = min_device_size
+        self.max_device_size = max_device_size
         self.wave_decoded = 0
         self.wave_encoded = 0
+        self.hc_encoded = 0
         self.host_fallbacks = 0
 
     def _encode(self, blocks, dict_prefixes, *, cap_n, has_dict,
@@ -169,21 +185,38 @@ class TorchBackend:
                                        dict_prefixes=dict_prefixes,
                                        favor_dec_speed=favor_dec_speed,
                                        max_dist=max_dist)
-        if level >= 2:
-            raise NotImplementedError(
-                f"lz4_tpu_torch: level {level} is an HC level, which is not "
-                "ported yet (ROADMAP item A8); use level <= 1")
         mx = max(len(b) for b in blocks)
+        has_dict = dict_prefixes is not None and any(
+            d for d in dict_prefixes)
+        if (level in HC_DEVICE_LEVELS and not has_dict
+                and self.min_device_size <= mx <= SEG
+                and not favor_dec_speed):
+            self.hc_encoded += 1
+            return self._compress_hc(blocks, level=level)
+        if level >= 2 or not (self.min_device_size <= mx
+                              <= self.max_device_size):
+            return HostBackend().compress_batch(
+                blocks, level=level, acceleration=acceleration,
+                dict_prefixes=dict_prefixes,
+                favor_dec_speed=favor_dec_speed)
         if mx > SEG:
             return self._compress_big_batch(
                 blocks, dict_prefixes, acceleration=acceleration,
                 max_dist=max_dist)
-        has_dict = dict_prefixes is not None and any(
-            d for d in dict_prefixes)
         out, _ = self._encode(blocks, dict_prefixes, cap_n=_pad_cap(mx),
                               has_dict=has_dict, acceleration=acceleration,
                               max_dist=max_dist)
         return out
+
+    def _compress_hc(self, blocks, *, level):
+        """No-dict HC batch of blocks <= 64 KB: one B5 launch."""
+        src, lens, _, _ = pack_blocks(blocks, cap=SEG)
+        out, csizes, _ = encode_blocks_hc(
+            *to_device_batch(src, lens, device=self.device)[:2], cap_n=SEG,
+            level=level)
+        out = out.cpu().numpy()
+        csizes = csizes.cpu().tolist()
+        return [out[i, : csizes[i]].tobytes() for i in range(len(blocks))]
 
     def _compress_maxd(self, blocks, *, level, acceleration, dict_prefixes,
                        favor_dec_speed, max_dist):

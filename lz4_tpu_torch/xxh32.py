@@ -7,7 +7,7 @@ content checksum. Two forms: a one-shot function and a streaming
 accumulator, both on the host C tier (`lz4_tpu_torch.native`, which
 raises when it cannot be built). `xxh32_plain` is the same function in
 Python, kept as the plain version the tests hold the C one against. The
-batched device XXH32 is a later kernel of the port.
+batched device XXH32 is `lz4_tpu_torch.xxh32_device` (kernel B6).
 """
 from __future__ import annotations
 

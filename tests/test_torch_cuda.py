@@ -1,4 +1,4 @@
-"""Kernels B1-B4 against their plain PyTorch versions on the card.
+"""Kernels B1-B6 against their plain PyTorch versions on the card.
 
 These need an NVIDIA GPU with nvcc and skip elsewhere. On a machine with
 the card (and without JAX, which tests/conftest.py imports) run:
@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from lz4_tpu_torch import xxh32_device
 from lz4_tpu_torch.block import decode_cuda, decode_wave, encode_cuda
-from lz4_tpu_torch.block import encode_wave
+from lz4_tpu_torch.block import encode_hc, encode_wave
+from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
-from lz4_tpu_torch.native import blockcodec
+from lz4_tpu_torch.native import blockcodec, xxh
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.utils.datagen import gen_buffer, gen_text
 
@@ -232,3 +234,52 @@ def test_backend_wave_routes_on_card(cuda):
     n = decode_wave.launches
     assert gpu.decompress_batch(capped, [65536] * len(blocks)) == blocks
     assert decode_wave.launches == n + 1 and gpu.host_fallbacks == 0
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_b5_random_and_edge_batches(cuda, seed):
+    rng = np.random.default_rng(400 + seed)
+    cap = 16384
+    blocks = _random_blocks(rng, 10, cap) + [
+        b"", b"abcabcabcab", b"\x00" * cap, b"abab" * (cap // 4),
+        gen_text(200, seed=seed), gen_buffer(cap, 0.97, seed=seed)]
+    src, lens, _, _ = pack_blocks(blocks, cap=cap)
+    lens[1] = cap + 100                   # clamped into [0, cap]
+    src_t, lens_t = torch.from_numpy(src), torch.from_numpy(lens)
+    for level in (3, 5, 9):
+        for favor in (False, True):
+            kw = dict(cap_n=cap, level=level, favor_dec_speed=favor)
+            go, gc, gt = (x.cpu() for x in encode_hc.encode_blocks_hc(
+                src_t.to(cuda), lens_t.to(cuda), **kw))
+            po, pc, pt = encode_hc.encode_blocks_hc_plain(src_t, lens_t, **kw)
+            assert torch.equal(gc, pc) and torch.equal(gt, pt), (level, favor)
+            for i, n in enumerate(pc.tolist()):
+                assert torch.equal(go[i, :n], po[i, :n]), (level, favor, i)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("seed", [0, 0xFFFFFFFF, 12345])
+def test_b6_random_rows(cuda, seed):
+    rng = np.random.default_rng(seed & 0xFFFF)
+    for cap in (16, 4096, 65536):
+        lens = [int(k) for k in rng.integers(0, cap + 1, 40)]
+        rows = [rng.bytes(k) for k in lens + [0, min(15, cap), cap]]
+        data, lens_a, _, _ = pack_blocks(rows, cap=cap)
+        d, n = torch.from_numpy(data), torch.from_numpy(lens_a)
+        gpu = xxh32_device.xxh32_blocks(d.to(cuda), n.to(cuda), seed,
+                                        cap=cap).cpu()
+        plain = xxh32_device.xxh32_blocks_plain(d, n, seed, cap=cap)
+        assert torch.equal(gpu, plain), cap
+        assert gpu.tolist() == [xxh.xxh32(r, seed) for r in rows]
+
+
+def test_backend_hc_route_on_card(cuda):
+    data = gen_text(300000, seed=15) + gen_buffer(200000, 0.7, seed=16)
+    blocks = [data[i: i + 65536] for i in range(0, len(data), 65536)]
+    gpu = TorchBackend(cuda)
+    n = encode_hc.launches
+    for level in (3, 9):
+        ours = gpu.compress_batch(blocks, level=level)
+        assert ours == HostBackend().compress_batch(blocks, level=level)
+        assert gpu.decompress_batch(ours, [65536] * len(blocks)) == blocks
+    assert encode_hc.launches == n + 2 and gpu.hc_encoded == 2

@@ -82,8 +82,11 @@ def test_decompress_batch_raises(backends):
         port.decompress_batch([good[:-3]], [65536])
     with pytest.raises(BlockDecodeError):
         port.decompress_batch([good], [1000])        # over its cap
-    with pytest.raises(NotImplementedError, match="A8"):
-        port.compress_batch([good], level=9)
+    # HC levels no longer raise: 3-9 run on B5 (its plain version here)
+    block = gen_text(5000, seed=6)
+    hc = port.compress_batch([block], level=9)
+    assert port.hc_encoded == 1
+    assert port.decompress_batch(hc, [len(block)]) == [block]
 
 
 @pytest.mark.parametrize("independent", [True, False])

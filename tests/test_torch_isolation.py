@@ -16,10 +16,12 @@ from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.decode_cuda import decode_blocks
 from lz4_tpu_torch.block.decode_wave import wave_decode_batch
 from lz4_tpu_torch.block.encode_cuda import encode_blocks
+from lz4_tpu_torch.block.encode_hc import encode_blocks_hc
 from lz4_tpu_torch.block.encode_wave import find_matches_batch
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
 from lz4_tpu_torch.parallel.engine import TorchBackend
+from lz4_tpu_torch.xxh32_device import xxh32_blocks
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(lz4_tpu_torch.__file__).resolve().parent
@@ -78,6 +80,10 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         encode_blocks(src, lens, cap_n=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decode_blocks(src, lens, cap_out=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_blocks_hc(src, lens, cap_n=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xxh32_blocks(src, lens, cap=64)
     arenas = np.zeros((2, 4, 1088), np.uint8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         wave_decode_batch(arenas, lens)
@@ -92,6 +98,9 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 def test_native_is_checked_for_imports():
     assert "lz4_tpu_torch.native" in _modules()
     assert PKG / "native" / "__init__.py" in _port_files()
+    for m in ("cli", "bench", "bench_harness", "xxh32_device", "io.engine",
+              "frame.file", "block.encode_hc"):
+        assert f"lz4_tpu_torch.{m}" in _modules()
 
 
 def test_host_backend_raises_without_a_compiler(monkeypatch, tmp_path):
