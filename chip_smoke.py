@@ -56,7 +56,8 @@ from lz4_tpu_torch.frame.format import FrameInfo, Preferences
 from lz4_tpu_torch.frame.reader import decompress_frame
 from lz4_tpu_torch.frame.writer import compress_frame
 from lz4_tpu_torch.parallel.engine import TorchBackend
-from lz4_tpu_torch.utils.datagen import gen_buffer, gen_text
+from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
+                                         gen_slot_words, gen_text)
 from lz4_tpu_torch.utils.realcorpus import describe, real_corpus
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
@@ -174,7 +175,7 @@ def encode_case(blocks, prefixes=None, cap=BLOCK, **kw):
     plain = encode_cuda.encode_blocks_plain(
         *to_device_batch(*arrays, device="cpu"), cap_n=cap, **kw)
     err = compare_encode(gpu, plain)
-    out, cs, _ = plain
+    out, cs, _ = (x.cpu() for x in gpu)
     return err, [out[i, : cs[i]].numpy().tobytes() for i in range(len(blocks))]
 
 
@@ -330,7 +331,38 @@ def phase_kernels_vs_plain():
     prefixes = [hist, hist[-3000:], hist[-40000:], hist, None]
     e, dstreams = encode_case(dblocks, prefixes)
     enc_err = max(enc_err, e)
-    log("B1 == plain: dict mode, full and partial history")
+    e, _ = encode_case(dblocks, prefixes, acceleration=65537)
+    enc_err = max(enc_err, e)
+    log("B1 == plain: dict mode, full, partial and empty history, "
+        "acceleration 1 and 65537")
+    # probes of one lockstep scan window sharing hash slots
+    coll = [gen_hash_walk(16384, seed=13), gen_slot_words(16384, seed=14),
+            gen_slot_words(5000, pool=8, seed=15)]
+    for accel in (1, 4, 8, 65537):
+        e, _ = encode_case(coll, cap=16384, acceleration=accel)
+        enc_err = max(enc_err, e)
+    e, _ = encode_case(coll, [gen_hash_walk(20000, seed=16), None,
+                              hist[-9000:]], cap=16384, acceleration=4)
+    enc_err = max(enc_err, e)
+    log("B1 == plain: hash-collision blocks, acceleration 1/4/8/65537, "
+        "no-dict and dict")
+    # more than 64 blocks in one call: a block's bytes do not depend on
+    # its place in the batch
+    many = [gen_text(1000 + 37 * i, seed=100 + i) if i % 3 else
+            gen_buffer(4096, 0.5, seed=i) for i in range(80)]
+    e, fwd = encode_case(many, cap=4096)
+    enc_err = max(enc_err, e)
+    e, rev = encode_case(many[::-1], cap=4096)
+    enc_err = max(enc_err, e)
+    if rev[::-1] != fwd:
+        raise AssertionError("B1 output depends on a block's place")
+    log("B1 == plain: 80 blocks in one call, forward and reversed")
+    # rows that are not whole 32-bit words (byte reads)
+    e, _ = encode_case(small, cap=8003)
+    enc_err = max(enc_err, e)
+    e, _ = encode_case(dblocks, prefixes, cap=8003, acceleration=2)
+    enc_err = max(enc_err, e)
+    log("B1 == plain: cap_n 8003, no-dict and dict")
 
     dec_err = 0
     for accel, ss in streams.items():

@@ -2,16 +2,20 @@
 
 Each source becomes a shared library with a plain C interface for
 `sm_90a` (Hopper), loaded with ctypes. The library's name carries a hash
-of its source and flags, so an edited kernel is rebuilt and a stale one
-is never loaded. A build writes a temporary file and renames it into
-place, so concurrent processes never load a half-written library. A
-failed build raises: there is no fallback.
+of every file the build reads (the source and the headers it includes
+from `csrc/`), the flags and the extra `-D` defines, so an edited kernel
+or header is rebuilt, a stale one is never loaded, and a variant built
+with other defines never shares a library with the kernel itself. A
+build writes a temporary file and renames it into place, so concurrent
+processes never load a half-written library. A failed build raises:
+there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,7 +47,7 @@ KERNELS = {
     "xxh32": ("lz4t_xxh32_blocks", (_P, _P, _P, _I, _I, _U, _P)),
 }
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -59,31 +63,59 @@ def nvcc() -> str:
         "the CUDA kernels are built from csrc/ at first use")
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[str]:
+    """The files the build of kernel `name` reads: `csrc/<name>.cu` and,
+    transitively, every header it includes with `#include "..."` that
+    lies in `csrc/`."""
+    todo = [os.path.join(CSRC, f"{name}.cu")]
+    seen: list[str] = []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(dep):
+                todo.append(os.path.normpath(dep))
+    return seen
+
+
+def library_path(name: str, defines=()) -> str:
+    key = hashlib.sha256()
+    for path in sorted(sources(name)):
+        with open(path, "rb") as f:
+            key.update(os.path.relpath(path, CSRC).encode() + b"\0"
+                       + f.read() + b"\0")
+    key.update(" ".join(NVCC_FLAGS).encode() + b"\0"
+               + " ".join(defines).encode())
     return os.path.join(BUILD_DIR, f"{name}-{key.hexdigest()[:16]}.so")
 
 
-def build(names=None) -> dict[str, float]:
+def build(names=None, defines=()) -> dict[str, float]:
     """Build the named kernels (all by default) that are not built yet,
-    one nvcc per source, all started together. Returns the seconds each
-    build took (0.0 for one already built). The compiler's report
-    (registers, shared memory, spills) is kept beside each library as
-    `.log`. Raises on the first failed build."""
+    one nvcc per source, all started together, each with `-D<d>` for
+    every d in `defines`. Returns the seconds each build took (0.0 for
+    one already built). The compiler's report (registers, shared memory,
+    spills) is kept beside each library as `.log`. Raises on the first
+    failed build."""
     names = list(KERNELS) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     started = {}
     secs = {}
     for name in names:
-        so = library_path(name)
+        so = library_path(name, defines)
         if os.path.exists(so):
             secs[name] = 0.0
             continue
         tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               tmp, os.path.join(CSRC, f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
         started[name] = (proc, so, tmp, time.perf_counter())
@@ -105,26 +137,28 @@ def build(names=None) -> dict[str, float]:
     return secs
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines=()) -> str:
     """nvcc's report for the built kernel (empty if not built here)."""
     try:
-        with open(f"{library_path(name)}.log", encoding="utf-8",
+        with open(f"{library_path(name, defines)}.log", encoding="utf-8",
                   errors="replace") as f:
             return f.read()
     except OSError:
         return ""
 
 
-def load(name: str):
-    """The C entry point of kernel `name`, building it if needed."""
+def load(name: str, defines=()):
+    """The C entry point of kernel `name` (built with `defines`), building
+    it if needed."""
+    defines = tuple(defines)
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get((name, defines))
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(library_path(name))
+            build([name], defines)
+            lib = ctypes.CDLL(library_path(name, defines))
             fn_name, argtypes = KERNELS[name]
             fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            _LIBS[name] = lib
+            _LIBS[(name, defines)] = lib
         return getattr(lib, KERNELS[name][0])

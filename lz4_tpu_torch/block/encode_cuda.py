@@ -122,40 +122,57 @@ def _put_len(out: bytearray, ln: int) -> None:
     out.append(ln % 255)
 
 
+def _scan_serial(seq, hsh, tab, sp, accel0, low, mflimit, matchlimit,
+                 max_dist, tail=None):
+    """The reference scan from sp, after the previous match's tail insert
+    (slot, position): two probes per step, each inserting before it
+    checks. Returns (match position, candidate) or (None, None)."""
+    if tail is not None:
+        tab[tail[0]] = tail[1]
+    srch = accel0
+    while sp <= mflimit:
+        sp1 = sp + (srch >> SKIP_TRIGGER)
+        sp1c = min(sp1, matchlimit)
+        h0 = hsh[sp]
+        e0 = tab[h0]
+        tab[h0] = sp
+        if low <= e0 < sp and sp - e0 <= max_dist and seq[e0] == seq[sp]:
+            return sp, e0
+        h1 = hsh[sp1c]
+        e1 = tab[h1]
+        tab[h1] = sp1c
+        if (sp1 <= mflimit and low <= e1 < sp1 and sp1 - e1 <= max_dist
+                and seq[e1] == seq[sp1c]):
+            return sp1, e1
+        sp = sp1 + ((srch + 1) >> SKIP_TRIGGER)
+        srch += 2
+    return None, None
+
+
 def _encode_one(buf: bytes, n: int, d0: int, low: int, accel0: int,
-                dict_stride: int, max_dist: int):
-    """One block: buf = [d0 history bytes | block row | zeros]."""
+                dict_stride: int, max_dist: int, model=None):
+    """One block: buf = [d0 history bytes | block row | zeros]. With a
+    `LockstepModel`, its history pre-insert and scan replace the serial
+    ones."""
     seq, hsh = _words_and_hashes(buf)
     tab = [0] * (1 << HASH_LOG)
     mflimit = d0 + n - MFLIMIT
     matchlimit = d0 + n - LASTLITERALS
+    scan = _scan_serial if model is None else model.scan
 
-    for q in range(low, d0, dict_stride):      # history pre-insert
-        tab[hsh[q]] = q
+    if model is None:
+        for q in range(low, d0, dict_stride):      # history pre-insert
+            tab[hsh[q]] = q
+    else:
+        model.preinsert(tab, hsh, low, d0, dict_stride)
 
-    def scan(sp):
-        srch = accel0
-        while sp <= mflimit:
-            sp1 = sp + (srch >> SKIP_TRIGGER)
-            sp1c = min(sp1, matchlimit)
-            h0 = hsh[sp]
-            e0 = tab[h0]
-            tab[h0] = sp
-            if low <= e0 < sp and sp - e0 <= max_dist and seq[e0] == seq[sp]:
-                return sp, e0
-            h1 = hsh[sp1c]
-            e1 = tab[h1]
-            tab[h1] = sp1c
-            if (sp1 <= mflimit and low <= e1 < sp1 and sp1 - e1 <= max_dist
-                    and seq[e1] == seq[sp1c]):
-                return sp1, e1
-            sp = sp1 + ((srch + 1) >> SKIP_TRIGGER)
-            srch += 2
-        return None, None
+    def find(sp, tail=None):
+        return scan(seq, hsh, tab, sp, accel0, low, mflimit, matchlimit,
+                    max_dist, tail)
 
     out = bytearray()
     anchor = d0
-    p, cand = scan(d0)
+    p, cand = find(d0)
     while p is not None:
         p2, c2 = p, cand
         while p2 > anchor and c2 > low and buf[p2 - 1] == buf[c2 - 1]:
@@ -174,10 +191,9 @@ def _encode_one(buf: bytes, n: int, d0: int, low: int, accel0: int,
         out.append(offset >> 8)
         if m4 >= 15:
             _put_len(out, m4 - 15)
-        t2 = p2 + ml - 2                         # tail insert
-        tab[hsh[t2]] = t2
+        t2 = p2 + ml - 2                  # tail insert, before the scan
         anchor = p2 + ml
-        p, cand = scan(anchor)
+        p, cand = find(anchor, (hsh[t2], t2))
     litlen = max(d0 + n - anchor, 0)
     out.append(min(litlen, 15) << 4)
     if litlen >= 15:
@@ -186,12 +202,8 @@ def _encode_one(buf: bytes, n: int, d0: int, low: int, accel0: int,
     return out, litlen
 
 
-def encode_blocks_plain(src, lens, dict_bufs=None, dict_lens=None, *,
-                        cap_n: int, acceleration: int = 1,
-                        dict_stride: int = 3, max_dist: int = 65535):
-    """Plain PyTorch version of B1 on CPU tensors: the kernel's greedy
-    parse step for step, in Python over each block's bytes, written into
-    tensors of the kernel's contract."""
+def _encode_batch(src, lens, dict_bufs, dict_lens, cap_n, acceleration,
+                  dict_stride, max_dist, model=None):
     accel = _check(acceleration, dict_stride, max_dist, cap_n)
     B = src.shape[0]
     bound = compress_bound(cap_n)
@@ -215,8 +227,120 @@ def encode_blocks_plain(src, lens, dict_bufs=None, dict_lens=None, *,
             low = 0
             buf = src_np[b].tobytes() + pad
         stream, trail = _encode_one(buf, n, d0, low, accel << SKIP_TRIGGER,
-                                    dict_stride, max_dist)
+                                    dict_stride, max_dist, model)
         out[b, : len(stream)] = torch.frombuffer(stream, dtype=torch.uint8)
         csizes[b] = len(stream)
         trailing[b] = trail
     return out, csizes, trailing
+
+
+def encode_blocks_plain(src, lens, dict_bufs=None, dict_lens=None, *,
+                        cap_n: int, acceleration: int = 1,
+                        dict_stride: int = 3, max_dist: int = 65535):
+    """Plain PyTorch version of B1 on CPU tensors: the kernel's greedy
+    parse step for step, in Python over each block's bytes, written into
+    tensors of the kernel's contract."""
+    return _encode_batch(src, lens, dict_bufs, dict_lens, cap_n,
+                         acceleration, dict_stride, max_dist)
+
+
+# --------------------------------------------------------------------------
+# the kernel's lockstep scan, lane by lane (a model for the tests)
+# --------------------------------------------------------------------------
+
+WARP = 32
+
+
+def window_positions(wp: int, j0: int):
+    """The kernel's probe positions for one window: the window's first
+    probe sits at wp with srch j0, and the gap from probe i to i + 1 is
+    (j0 + i) >> SKIP_TRIGGER. Returns the 32 positions and the next
+    window's wp."""
+    qa, ra = j0 >> SKIP_TRIGGER, j0 & 63
+    pos = [wp + k * qa + max(0, k - (64 - ra)) for k in range(WARP)]
+    return pos, wp + WARP * qa + max(0, ra - WARP)
+
+
+class LockstepModel:
+    """B1's scan as its warp runs it, one window of 32 probes a step, with
+    the previous match's tail insert folded into the first window as a
+    probe before lane 0, and its parallel history pre-insert (an atomic
+    max per slot, here in reverse order). Counts `windows`, `shared`
+    (committed probes that took their candidate from a lower lane of the
+    same hash), `tails` (probes that took the pending tail insert as
+    their candidate) and `hits`."""
+
+    def __init__(self):
+        self.windows = self.shared = self.hits = self.tails = 0
+
+    @staticmethod
+    def preinsert(tab, hsh, low, d0, dict_stride):
+        for q in reversed(range(low, d0, dict_stride)):
+            tab[hsh[q]] = max(tab[hsh[q]], q)
+
+    def scan(self, seq, hsh, tab, p, accel0, low, mflimit, matchlimit,
+             max_dist, tail=None):
+        ht, t2 = tail if tail is not None else (None, None)
+        wp, j0 = p, accel0
+        while True:
+            self.windows += 1
+            positions, wp = window_positions(wp, j0)
+            lanes = []
+            for k, pos in enumerate(positions):
+                active = canhit = pos <= mflimit
+                q = pos
+                if k & 1:           # sp1: inserts whenever its sp ran
+                    active = pos - ((j0 + k - 1) >> SKIP_TRIGGER) <= mflimit
+                    q = min(pos, matchlimit)
+                h = hsh[q] if active else 0x10000 + k
+                lanes.append([active, canhit, q, h,
+                              tab[h] if active else 0])
+            # __match_any_sync, masked to lower lanes
+            last_of = {}
+            lower_of = []
+            for k, (_, _, q, h, _) in enumerate(lanes):
+                lower_of.append(last_of.get(h))
+                last_of[h] = k
+            hits = []
+            for k, lane in enumerate(lanes):
+                active, canhit, q, h, e = lane
+                if lower_of[k] is not None:
+                    e = lane[4] = lanes[lower_of[k]][2]
+                elif active and h == ht:
+                    e = lane[4] = t2
+                    self.tails += 1
+                if (canhit and low <= e < q and q - e <= max_dist
+                        and seq[e] == seq[q]):
+                    hits.append(k)
+            last = hits[0] if hits else WARP - 1
+            # commit lanes up to the first hit: the highest of each hash
+            # group writes
+            writer = {}
+            for k in range(last + 1):
+                if lanes[k][0]:
+                    writer[lanes[k][3]] = k
+                    if lower_of[k] is not None:
+                        self.shared += 1
+            if ht is not None and ht not in writer:
+                tab[ht] = t2
+            ht = None
+            for h, k in writer.items():
+                tab[h] = lanes[k][2]
+            if hits:
+                self.hits += 1
+                return lanes[hits[0]][2], lanes[hits[0]][4]
+            if not all(lane[0] for lane in lanes):
+                return None, None
+            j0 += WARP
+
+
+def encode_blocks_lockstep(src, lens, dict_bufs=None, dict_lens=None, *,
+                           cap_n: int, acceleration: int = 1,
+                           dict_stride: int = 3, max_dist: int = 65535):
+    """`encode_blocks_plain` with B1's lockstep scan and parallel history
+    pre-insert modelled lane by lane (for the tests). Returns the plain
+    version's tensors and the `LockstepModel` with its counts."""
+    model = LockstepModel()
+    return (*_encode_batch(src, lens, dict_bufs, dict_lens, cap_n,
+                           acceleration, dict_stride, max_dist, model),
+            model)

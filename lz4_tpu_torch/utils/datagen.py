@@ -101,3 +101,43 @@ def mixed_corpus(total: int, seed: int = 0) -> bytes:
                    lit_alphabet=250),
     ]
     return b"".join(parts)
+
+
+def knuth_hash16(words) -> np.ndarray:
+    """B1's table slot of each 32-bit little-endian word: the top
+    HASH_LOG (16) bits of its product with Knuth's multiplier."""
+    from lz4_tpu_torch.block.encode_cuda import HASH_LOG, HASH_MUL
+    w = np.asarray(words, dtype=np.uint64)
+    return ((w * HASH_MUL) & 0xFFFFFFFF) >> (32 - HASH_LOG)
+
+
+def gen_hash_walk(size: int, slots: int = 256, seed: int = 0) -> bytes:
+    """Bytes whose every 4-byte window hashes (`knuth_hash16`) into one of
+    `slots` random table slots, wherever some next byte allows it: the
+    probes of one B1 scan window then share slots far more often than in
+    real data."""
+    rng = np.random.default_rng(seed)
+    allowed = np.zeros(1 << 16, bool)
+    allowed[rng.choice(1 << 16, slots, replace=False)] = True
+    top = np.arange(256, dtype=np.uint64) << np.uint64(24)
+    out = bytearray(rng.bytes(min(3, size)))
+    for _ in range(3, size):
+        base = out[-3] | (out[-2] << 8) | (out[-1] << 16)
+        ok = np.nonzero(allowed[knuth_hash16(top | np.uint64(base))])[0]
+        out.append(int(rng.choice(ok)) if ok.size
+                   else int(rng.integers(256)))
+    return bytes(out)
+
+
+def gen_slot_words(size: int, pool: int = 64, seed: int = 0) -> bytes:
+    """4-byte words drawn at random from `pool` distinct words that all
+    hash (`knuth_hash16`) to one table slot, found by a numpy search over
+    random words. At an acceleration whose skip is a multiple of 4, every
+    probe of a B1 scan window from an aligned anchor lands in that slot;
+    the repeats make real matches among them."""
+    rng = np.random.default_rng(seed)
+    cand = np.unique(rng.integers(0, 1 << 32, 1 << 22, dtype=np.uint64))
+    h = knuth_hash16(cand)
+    words = cand[h == np.bincount(h.astype(np.int64)).argmax()][:pool]
+    picks = words[rng.integers(0, words.size, (size + 3) // 4)]
+    return picks.astype("<u4").tobytes()[:size]

@@ -18,7 +18,8 @@ from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
 from lz4_tpu_torch.native import blockcodec, xxh
 from lz4_tpu_torch.parallel.engine import TorchBackend
-from lz4_tpu_torch.utils.datagen import gen_buffer, gen_text
+from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
+                                         gen_slot_words, gen_text)
 
 pytestmark = pytest.mark.cuda
 
@@ -59,7 +60,7 @@ def _encode_both(cuda, blocks, prefixes=None, cap=65536, **kw):
     assert torch.equal(gc, pc) and torch.equal(gt, pt)
     for i, n in enumerate(pc.tolist()):
         assert torch.equal(go[i, :n], po[i, :n]), i
-    return [po[i, :n].numpy().tobytes() for i, n in enumerate(pc.tolist())]
+    return [go[i, :n].numpy().tobytes() for i, n in enumerate(gc.tolist())]
 
 
 def _decode_both(cuda, streams, prefixes=None, cap_out=65536, loose=False):
@@ -89,6 +90,49 @@ def test_b1_random_batches(cuda, seed):
     hist = gen_text(70000, seed=seed)
     prefixes = [hist[-int(rng.integers(0, 70000)):] or None for _ in blocks]
     _encode_both(cuda, blocks, prefixes, acceleration=accel)
+
+
+@pytest.mark.parametrize("accel", [1, 4, 8, 65537])
+def test_b1_hash_collision_blocks(cuda, accel):
+    """Probes of one lockstep scan window sharing table slots."""
+    blocks = [gen_hash_walk(16384, seed=accel), gen_slot_words(16384,
+                                                               seed=accel),
+              gen_slot_words(3000, pool=4, seed=accel + 1), b"", b"q" * 13]
+    _encode_both(cuda, blocks, cap=16384, acceleration=accel)
+    hist = gen_hash_walk(70000, seed=accel + 2)
+    _encode_both(cuda, blocks, [hist, hist[-5000:], None, hist, hist[-1:]],
+                 cap=16384, acceleration=accel)
+
+
+def test_b1_dict_partial_history_max_acceleration(cuda):
+    hist = gen_text(70000, seed=31)
+    blocks = [hist[-9000:-1000] + b"tail" * 500, gen_text(30000, seed=32),
+              gen_buffer(20000, 0.8, seed=33), b"abc", b""]
+    prefixes = [hist[-12000:], hist[-300:], hist, None, hist[-64:]]
+    for accel in (1, 65537):
+        _encode_both(cuda, blocks, prefixes, acceleration=accel)
+    _encode_both(cuda, blocks, prefixes, dict_stride=1, max_dist=3000)
+
+
+def test_b1_rows_of_odd_width(cuda):
+    """cap_n not a multiple of 4: the kernel reads the rows byte by byte."""
+    rng = np.random.default_rng(78)
+    blocks = _random_blocks(rng, 12, 5003) + [b"", b"x" * 5003]
+    _encode_both(cuda, blocks, cap=5003)
+    hist = gen_text(70000, seed=79)
+    _encode_both(cuda, blocks, [hist[-k:] or None for k in
+                                rng.integers(0, 70000, len(blocks))],
+                 cap=5003, acceleration=3)
+
+
+def test_b1_more_than_64_blocks(cuda):
+    """One call of 100 blocks: a block's bytes do not depend on its place
+    in the batch."""
+    rng = np.random.default_rng(77)
+    blocks = _random_blocks(rng, 100, 8192)
+    fwd = _encode_both(cuda, blocks, cap=8192)
+    rev = _encode_both(cuda, blocks[::-1], cap=8192)
+    assert rev[::-1] == fwd
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -20,6 +20,7 @@ from lz4_tpu_torch.block.encode_hc import encode_blocks_hc
 from lz4_tpu_torch.block.encode_wave import find_matches_batch
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
+from lz4_tpu_torch.probes import b1_split
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.xxh32_device import xxh32_blocks
 
@@ -99,7 +100,7 @@ def test_native_is_checked_for_imports():
     assert "lz4_tpu_torch.native" in _modules()
     assert PKG / "native" / "__init__.py" in _port_files()
     for m in ("cli", "bench", "bench_harness", "xxh32_device", "io.engine",
-              "frame.file", "block.encode_hc"):
+              "frame.file", "block.encode_hc", "probes.b1_split"):
         assert f"lz4_tpu_torch.{m}" in _modules()
 
 
@@ -130,3 +131,25 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no compiler here"):
         _build.build(["decode_serial"])
     assert not any((tmp_path / "build").glob("*.so"))
+
+
+def test_library_key_covers_headers_and_defines(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "k.cuh"\n#include <cstdint>\n')
+    (csrc / "k.cuh").write_text('#include "deep.cuh"\n')
+    (csrc / "deep.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    assert sorted(pathlib.Path(p).name for p in _build.sources("k")) == [
+        "deep.cuh", "k.cu", "k.cuh"]
+    key = _build.library_path("k")
+    assert _build.library_path("k") == key
+    assert _build.library_path("k", ("LZ4T_B1_NOLITS",)) != key
+    (csrc / "deep.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != key
+
+
+def test_probe_needs_a_gpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert b1_split.main([]) != 0
+    assert capsys.readouterr().out == ""
