@@ -34,10 +34,12 @@ line before it is the card's name and power limit, and before that a
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import filecmp
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -118,6 +120,15 @@ def one_c_call(fn):
         return host_ms(fn)
     finally:
         native.SPAN_ROWS = rows
+
+
+def b5_resources() -> dict:
+    """B5's registers per thread (nvcc's report) and the dynamic shared
+    memory of each CTA (the kernel's own figure)."""
+    lib = ctypes.CDLL(_build.library_path("encode_hc"))
+    regs = re.findall(r"Used (\d+) registers", _build.build_log("encode_hc"))
+    return {"registers": int(regs[0]) if regs else None,
+            "smem_bytes": int(lib.lz4t_encode_hc_smem())}
 
 
 def reset_launches():
@@ -974,6 +985,8 @@ def main() -> int:
          "ms": hc[9]["ms"], "plain_ms": hc[9]["plain_ms"],
          "bound_ms": hc[9]["bound_ms"], "level3_ms": hc[3]["ms"],
          "level3_launches": hc[3]["launches"]["B5"],
+         "level3_plain_ms": hc[3]["plain_ms"],
+         "level3_bound_ms": hc[3]["bound_ms"], **b5_resources(),
          **common, "plain_blocks": hc[9]["plain_rows"]},
         {"name": "B6 xxh32",
          "source": "lz4_tpu_torch/csrc/xxh32.cu",

@@ -21,7 +21,6 @@ the port's C `compress_lazy` at the same depth.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from lz4_tpu_torch.block.batch import to_device_batch
@@ -110,33 +109,50 @@ def _common_prefix(buf: bytes, q1: int, q2: int, maxn: int) -> int:
     return c
 
 
-def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
-    """One block: buf = [block row | >= _PAD zeros]. Returns (stream,
-    final literal run)."""
-    t = np.frombuffer(buf, np.uint8).astype(np.uint64)
+def _hash15(seq):
+    """The 15-bit Knuth hash of 4-byte words (int64 tensor), with no int64
+    product that overflows: (seq * HASH_MUL) mod 2^32 in two halves."""
+    lo = seq * (HASH_MUL & 0xFFFF)
+    hi = ((seq * (HASH_MUL >> 16)) & 0xFFFF) << 16
+    return ((lo + hi) & _M32) >> (32 - HASH_LOG)
+
+
+def _tables(buf: bytes):
+    """read4 (4 bytes little-endian) and its hash at every position of buf
+    (which ends in >= 3 zero bytes)."""
+    t = torch.frombuffer(bytearray(buf), dtype=torch.uint8).to(torch.int64)
     seq = t[:-3] | (t[1:-2] << 8) | (t[2:-1] << 16) | (t[3:] << 24)
-    W = seq.tolist()                                 # read4 at every q
-    H = (((seq * HASH_MUL) & _M32) >> (32 - HASH_LOG)).tolist()
-    head = [-1] * (1 << HASH_LOG)                    # -1: no chain
-    chain = [0] * MAX_CAP_N                          # 0 ends a chain
-    mflimit = n - MFLIMIT
+    return seq.tolist(), _hash15(seq).tolist()
+
+
+def _periodic(pat: int) -> bool:
+    """A 4-byte pattern that repeats with period 1 or 2."""
+    return (pat & 0xFFFF) == (pat >> 16) and (pat & 255) == (pat >> 24)
+
+
+def _searcher(buf, W, n, depth, favor, head_of, chain, *, score=None,
+              pat_fwd=None, pat_rev=None, batched=None, visit=None):
+    """lazy_search(pos, lowpos, lg) of one block: the widest match at pos
+    that may back-extend to lowpos and beats lg, as (len, off, back); off
+    0 means nothing beat lg. head_of(pos) is the last position below pos
+    with pos's hash (-1: none), chain[q] = q - prev(q) (0: none) for every
+    q below pos. score(pos, c, maxb) -> (total length, back), pat_fwd and
+    pat_rev default to plain serial counts; a model of the kernel passes
+    its own, `batched`, its walk where no candidate can take the
+    repeat-pattern path, and `visit`, called at each candidate of the
+    serial walk."""
     matchlimit = n - LASTLITERALS
     pa = depth > 128                                 # pattern analysis
-    out = bytearray()
 
-    def insert_range(a, b):
-        """Insert [a, b) in order; returns max(a, b). Re-inserting the
-        current head keeps its chain link."""
-        for q in range(a, b):
-            h = H[q]
-            e = head[h]
-            if e != q:
-                d = q - e if e >= 0 else 0
-                chain[q] = d if 0 < d <= WINDOW else 0
-            head[h] = q
-        return max(a, b)
+    def plain_score(pos, c, maxb):
+        bk = 0
+        while bk < maxb and buf[pos - 1 - bk] == buf[c - 1 - bk]:
+            bk += 1
+        return 4 + _common_prefix(buf, pos + 4, c + 4,
+                                  matchlimit - (pos + 4)) + bk, bk
 
-    def count_pat_fwd(q, pat, limit):
+    def plain_pat_fwd(q, pat, limit):
+        """run length of the repeating 4-byte pattern starting at q"""
         p = q
         while p + 4 <= limit and W[p] == pat:
             p += 4
@@ -148,7 +164,8 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
             x = (x >> 8) | ((x << 24) & _M32)
         return p - q
 
-    def count_pat_rev(q, pat, low):
+    def plain_pat_rev(q, pat, low):
+        """run length of the pattern ending at q, scanning back to low"""
         p = q
         while p >= low + 4 and W[p - 4] == pat:
             p -= 4
@@ -160,34 +177,32 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
             x = ((x << 8) & _M32) | (x >> 24)
         return q - p
 
-    def lazy_search(pos, lowpos, lg, ni):
-        """Widest match at pos that may back-extend to lowpos and beats
-        lg; positions [ni, pos) are inserted first, pos is not. Returns
-        (len, off, back, ni'); off == 0 means nothing beat lg."""
-        ni = insert_range(ni, pos)
+    score = score or plain_score
+    pat_fwd = pat_fwd or plain_pat_fwd
+    pat_rev = pat_rev or plain_pat_rev
+
+    def lazy_search(pos, lowpos, lg):
         pat = W[pos]
-        c = head[H[pos]]
+        c = head_of(pos)
         lowest = max(pos - WINDOW, 0)
         lookback = pos - lowpos
         offb = backb = 0
         if c < 0 or not lowest <= c < pos:
-            return lg, offb, backb, ni
+            return lg, offb, backb
+        if batched is not None and not (pa and _periodic(pat)):
+            return batched(pos, lowpos, lg, c, lowest, pat)
         tries, rep, spl = depth, 0, 0
         while tries > 0:
+            if visit is not None:
+                visit()
             # score candidate c: the can-beat filter (addresses clamped at
             # 0), then forward and backward extension
             a1 = lowpos + lg - 1
             a2 = c - lookback + lg - 1
             if ((W[max(a1, 0)] & 0xFFFF) == (W[max(a2, 0)] & 0xFFFF)
                     and W[c] == pat and not (favor and pos - c < 8)):
-                tot = 4 + _common_prefix(buf, pos + 4, c + 4,
-                                         matchlimit - (pos + 4))
-                bk = 0
-                if lookback > 0:
-                    maxb = min(lookback, c)
-                    while bk < maxb and buf[pos - 1 - bk] == buf[c - 1 - bk]:
-                        bk += 1
-                tot += bk
+                tot, bk = score(pos, c, min(lookback, c) if lookback > 0
+                                else 0)
                 if tot > lg:
                     lg, offb, backb = tot, pos - c, bk
             # next candidate
@@ -195,17 +210,16 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
             applies = False
             if pa and c > 0 and dlt == 1:
                 if rep == 0:
-                    periodic = ((pat & 0xFFFF) == (pat >> 16)
-                                and (pat & 255) == (pat >> 24))
+                    periodic = _periodic(pat)
                     if periodic:
-                        spl = count_pat_fwd(pos + 4, pat, matchlimit) + 4
+                        spl = pat_fwd(pos + 4, pat, matchlimit) + 4
                     rep = 2 if periodic else 1
                 cand = c - 1
                 applies = (rep == 2 and cand >= lowest
                            and W[max(cand, 0)] == pat)
             if applies:
-                fwd_pat = count_pat_fwd(cand + 4, pat, matchlimit) + 4
-                back_pat = count_pat_rev(cand, pat, 0)
+                fwd_pat = pat_fwd(cand + 4, pat, matchlimit) + 4
+                back_pat = pat_rev(cand, pat, 0)
                 if cand - back_pat < lowest:
                     back_pat = cand - lowest
                 seg = back_pat + fwd_pat
@@ -234,34 +248,28 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
                 break
             tries -= 1
             c = nc
-        return lg, offb, backb, ni
+        return lg, offb, backb
 
-    def put_len(ln):
-        out.extend(b"\xff" * (ln // 255))
-        out.append(ln % 255)
+    return lazy_search
 
-    def emit(anchor, ip, off, mlen):
-        litlen = ip - anchor
-        mlc = mlen - 4
-        out.append((min(litlen, 15) << 4) | min(mlc, 15))
-        if litlen >= 15:
-            put_len(litlen - 15)
-        out.extend(buf[anchor:ip])
-        out.append(off & 255)
-        out.append(off >> 8)
-        if mlc >= 15:
-            put_len(mlc - 15)
 
-    # the Search2/Search3 arbitration: state 0 scans for a first match m1
-    # at ip (saved as m0 at s0), state 1 looks for a wider overlapping m2
-    # at s2, state 2 for a third m3 at s3 past m2
-    state, ip, anchor, ni = 0, 0, 0, 0
-    m1l = m1o = s0 = m0l = m0o = s2 = m2l = m2o = 0
+def _machine(search, mflimit, ip, at_scan, commit):
+    """The Search2/Search3 arbitration from state 0 at ip: state 0 scans
+    for a first match m1 at ip (saved as m0 at s0), state 1 looks for a
+    wider overlapping m2 at s2, state 2 for a third m3 at s3 past m2.
+    at_scan(ip) is asked at every state-0 turn before its search and stops
+    the machine there when true; commit(start, mlen, off) takes each
+    sequence in order (its literals run from the previous one's end).
+    Returns the position of the state-0 turn it stopped at (> mflimit at
+    the block's end). Which sequences follow a state-0 turn at ip depends
+    on ip alone."""
+    state, s0, s2 = 0, 0, 0
+    m1l = m1o = m0l = m0o = m2l = m2o = 0
     while True:
         if state == 0:
-            if ip > mflimit:
-                break
-            ml, mo, _, ni = lazy_search(ip, ip, 3, ni)
+            if ip > mflimit or at_scan(ip):
+                return ip
+            ml, mo, _ = search(ip, ip, 3)
             if ml >= 4 and mo > 0:
                 state, m1l, m1o, s0, m0l, m0o = 1, ml, mo, ip, ml, mo
             else:
@@ -270,14 +278,13 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
             can2 = ip + m1l <= mflimit
             probe = ip + m1l - 2
             if can2:
-                m2l, m2o, m2b, ni = lazy_search(probe, ip, m1l, ni)
+                m2l, m2o, m2b = search(probe, ip, m1l)
             else:
                 m2l, m2o, m2b = m1l, 0, 0
             s2 = probe - m2b
             if not (can2 and m2l > m1l and m2o > 0):
-                emit(anchor, ip, m1o, m1l)       # nothing wider: commit m1
+                commit(ip, m1l, m1o)             # nothing wider: commit m1
                 ip += m1l
-                anchor = ip
                 state = 0
                 continue
             if s0 < ip and s2 < ip + m0l:         # restore the saved m0
@@ -298,7 +305,7 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
             can3 = s2 + m2l <= mflimit
             probe3 = s2 + m2l - 3
             if can3:
-                m3l, m3o, m3b, ni = lazy_search(probe3, s2, m2l, ni)
+                m3l, m3o, m3b = search(probe3, s2, m2l)
             else:
                 m3l, m3o, m3b = m2l, 0, 0
             s3 = probe3 - m3b
@@ -306,9 +313,9 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
                 # no better third: m1 (cut at s2), then m2
                 if s2 < ip + m1l:
                     m1l = s2 - ip
-                emit(anchor, ip, m1o, m1l)
-                emit(ip + m1l, s2, m2o, m2l)
-                ip = anchor = s2 + m2l
+                commit(ip, m1l, m1o)
+                commit(s2, m2l, m2o)
+                ip = s2 + m2l
                 state = 0
             elif s3 < ip + m1l + 3:
                 if s3 >= ip + m1l:
@@ -319,8 +326,7 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
                         m2l -= corr
                     if m2l < 4:
                         s2, m2l, m2o = s3, m3l, m3o
-                    emit(anchor, ip, m1o, m1l)
-                    anchor = ip + m1l
+                    commit(ip, m1l, m1o)
                     ip, m1l, m1o = s3, m3l, m3o
                     s0, m0l, m0o = s2, m2l, m2o
                     state = 1
@@ -339,16 +345,78 @@ def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
                             m2l -= corr
                     else:
                         m1l = s2 - ip
-                emit(anchor, ip, m1o, m1l)
-                anchor = ip + m1l
+                commit(ip, m1l, m1o)
                 ip, m1l, m1o = s2, m2l, m2o
                 s2, m2l, m2o = s3, m3l, m3o
-    litlen = max(n - anchor, 0)
+
+
+def _emit(buf: bytes, n: int, seqs):
+    """The LZ4 stream of sequences (start, mlen, off) in order, each with
+    the literals from the previous one's end, then the final literal run.
+    Returns (stream, final literal run)."""
+    out = bytearray()
+
+    def put_len(ln):
+        out.extend(b"\xff" * (ln // 255))
+        out.append(ln % 255)
+
+    prev = 0
+    for start, mlen, off in seqs:
+        litlen = start - prev
+        mlc = mlen - 4
+        out.append((min(litlen, 15) << 4) | min(mlc, 15))
+        if litlen >= 15:
+            put_len(litlen - 15)
+        out.extend(buf[prev:start])
+        out.append(off & 255)
+        out.append(off >> 8)
+        if mlc >= 15:
+            put_len(mlc - 15)
+        prev = start + mlen
+    litlen = max(n - prev, 0)
     out.append(min(litlen, 15) << 4)
     if litlen >= 15:
         put_len(litlen - 15)
-    out.extend(buf[anchor: anchor + litlen])
+    out.extend(buf[prev: prev + litlen])
     return out, litlen
+
+
+class _SerialInserts:
+    """The serial parse's hash chains: a head per slot (-1: none) and
+    chain[q] = q - prev(q) (0 ends a chain), positions inserted in order."""
+
+    def __init__(self, H):
+        self.H = H
+        self.head = [-1] * (1 << HASH_LOG)
+        self.chain = [0] * MAX_CAP_N
+        self.ni = 0                                  # next to insert
+
+    def head_of(self, pos):
+        """Insert [ni, pos) in order (re-inserting the current head keeps
+        its chain link); returns the head of pos's hash."""
+        H, head, chain = self.H, self.head, self.chain
+        for q in range(self.ni, pos):
+            h = H[q]
+            e = head[h]
+            if e != q:
+                d = q - e if e >= 0 else 0
+                chain[q] = d if 0 < d <= WINDOW else 0
+            head[h] = q
+        self.ni = max(self.ni, pos)
+        return head[H[pos]]
+
+
+def _encode_hc_one(buf: bytes, n: int, depth: int, favor: bool):
+    """One block: buf = [block row | >= _PAD zeros]. Positions are
+    inserted into the hash chains in order, each before any search above
+    it. Returns (stream, final literal run)."""
+    W, H = _tables(buf)
+    ins = _SerialInserts(H)
+    seqs = []
+    _machine(_searcher(buf, W, n, depth, favor, ins.head_of, ins.chain),
+             n - MFLIMIT, 0, lambda ip: False,
+             lambda *seq: seqs.append(seq))
+    return _emit(buf, n, seqs)
 
 
 def encode_blocks_hc_plain(src, lens, *, cap_n: int, level: int = 9,
@@ -375,3 +443,358 @@ def encode_blocks_hc_plain(src, lens, *, cap_n: int, level: int = 9,
         csizes[b] = len(stream)
         trailing[b] = trail
     return out, csizes, trailing
+
+
+# --------------------------------------------------------------------------
+# the kernel's design on the CPU: the pre-pass, the segmented parse and the
+# warp's counts lane by lane (a model for the tests)
+# --------------------------------------------------------------------------
+
+WARP = 32
+SEGMENTS = 128                 # speculative parses per block (B5's parts)
+
+
+def chain_deltas(src, lens, *, cap_n: int):
+    """B5's pre-pass, vectorised: chain[b, q] = q - prev(q) for every
+    position q a search of row b can reach (q <= n_b - 12), where prev(q)
+    is the last q' < q whose 4 bytes hash to q's 15-bit slot; 0 where there
+    is none and past the last position. A stable sort by (slot, position)
+    puts each slot's positions in order. int32[B, cap_n]."""
+    _check_cap(cap_n)
+    B = src.shape[0]
+    t = torch.zeros((B, cap_n + 3), dtype=torch.int64)
+    t[:, :cap_n] = src.cpu().to(torch.int64)
+    seq = t[:, :-3] | (t[:, 1:-2] << 8) | (t[:, 2:-1] << 16) | (t[:, 3:] << 24)
+    npos = (lens.cpu().to(torch.int64).clamp(0, cap_n) - MFLIMIT + 1).clamp(
+        min=0)
+    live = torch.arange(cap_n)[None, :] < npos[:, None]
+    key = torch.where(live, _hash15(seq), 1 << HASH_LOG)
+    skey, order = torch.sort(key, dim=1, stable=True)
+    same = (skey[:, 1:] == skey[:, :-1]) & (skey[:, 1:] < (1 << HASH_LOG))
+    delta = torch.where(same, order[:, 1:] - order[:, :-1], 0)
+    chain = torch.zeros((B, cap_n), dtype=torch.int64)
+    chain.scatter_(1, order[:, 1:], delta)
+    return chain.to(torch.int32)
+
+
+def segment_caps(cap_n: int, segments: int = SEGMENTS):
+    """Sequence-list capacities of B5's scratch: a speculative parse's
+    list (a quarter of its segment plus slack; one that fills stops at its
+    last state-0 turn before) and a repair's (one that fills sends the
+    block to the serial parse)."""
+    return -(-cap_n // (4 * segments)) + 128, 256
+
+
+class HCLockstepModel:
+    """B5 as its kernel runs it, on the CPU, for the tests.
+
+    The parse reads only the pre-pass's delta table (`chain_deltas`; the
+    head of a search at pos is pos - chain[pos]). The block's searchable
+    positions are cut into `segments` equal parts, which the kernel's
+    warps take in turn. Each part is parsed speculatively, from state 0 at
+    its first position, up to its first state-0 turn at or past the next
+    part (or its list's capacity), marking every state-0 position it
+    searches from. Which sequences follow a state-0 turn depends on its
+    position alone, so the true parse, once it reaches a state-0 turn that
+    a later part marked, follows that part's parse from there. Then the
+    join after each part is repaired: the true machine from where the
+    part's parse stopped up to the first
+    valid mark (a mark below its owner's end). The stream is part 0's
+    sequences, then repairs and the adopted parses' suffixes in turn; a
+    repair that fills its list sends the block to one serial parse. Chain
+    walks that cannot take the repeat-pattern path go 32 candidates a
+    step (a walk ahead, then the candidates scored in chain order against
+    the running best); the forward and back counts and the pattern counts
+    go lane by lane, 128, 32 and 128 bytes a warp step.
+
+    Counts: `searches`, `candidates`, `scored` (passed the can-beat filter
+    and were scored in full), `bytes` (equal bytes the counts found),
+    `steps` (warp steps of the counts), `syncs` (joins a repair closed on
+    a mark), `repaired` (sequences the repairs made), `fallbacks`. With
+    `serial_check` (one segment only) it also runs the serial inserts and
+    asserts, at every search, that search positions never decrease and
+    that the pre-pass table holds what the inserts have written. With
+    `batched` off every chain is walked one candidate a step (the
+    kernel's `LZ4T_B5_SERIAL_WALK` build)."""
+
+    def __init__(self, segments: int = SEGMENTS, caps=None,
+                 serial_check: bool = False, batched: bool = True):
+        if serial_check and segments != 1:
+            raise ValueError("serial_check needs one segment")
+        self.segments = segments
+        self.caps = caps
+        self.serial_check = serial_check
+        self.batched = batched
+        self.searches = self.candidates = self.scored = self.bytes = 0
+        self.steps = self.syncs = self.repaired = self.fallbacks = 0
+
+    # ---------------------------------------------------------- one block
+    def encode_one(self, buf, n, depth, favor, chain, cap_n):
+        W, H = _tables(buf)
+        matchlimit = n - LASTLITERALS
+        model = self
+        serial = _SerialInserts(H) if self.serial_check else None
+        last = [0]
+
+        def head_of(pos):
+            model.searches += 1
+            if serial is not None:
+                assert pos >= last[0], "search positions decreased"
+                ni = serial.ni
+                e = serial.head_of(pos)
+                assert serial.chain[ni:pos] == chain[ni:pos], pos
+                assert e == (pos - chain[pos] if chain[pos] else -1), pos
+            last[0] = pos
+            d = chain[pos]
+            return pos - d if d else -1
+
+        def read16c(q):
+            return W[max(q, 0)] & 0xFFFF
+
+        def good(q1, q2, ci, maxn):
+            """a lane's 4 forward bytes: how many are equal (< 4: the
+            first mismatch or maxn)"""
+            if ci >= maxn:
+                return 0
+            x = W[q1 + ci] ^ W[q2 + ci]
+            g = ((x & -x).bit_length() - 1) >> 3 if x else 4
+            return min(g, maxn - ci)
+
+        def fwd_from(q1, q2, maxn, c0):
+            c = c0
+            while c < maxn:
+                model.steps += 1
+                if (c + 4 * WARP <= maxn and buf[q1 + c: q1 + c + 4 * WARP]
+                        == buf[q2 + c: q2 + c + 4 * WARP]):
+                    c += 4 * WARP                 # every lane's 4 bytes equal
+                    continue
+                goods = [good(q1, q2, c + 4 * k, maxn) for k in range(WARP)]
+                f = next((k for k, g in enumerate(goods) if g < 4), None)
+                if f is not None:
+                    return c + 4 * f + goods[f]
+                c += 4 * WARP
+            return maxn
+
+        def back_from(p, c, kmax, k0):
+            k = k0
+            while k < kmax:
+                model.steps += 1
+                stops = [k + i >= kmax
+                         or buf[p - 1 - k - i] != buf[c - 1 - k - i]
+                         for i in range(WARP)]
+                if any(stops):
+                    return k + stops.index(True)
+                k += WARP
+            return kmax
+
+        def score(pos, c, maxb):
+            # the back count and the first forward step in one warp step
+            q1, q2 = pos + 4, c + 4
+            maxn = matchlimit - q1
+            model.steps += 1
+            stops = [i >= maxb or buf[pos - 1 - i] != buf[c - 1 - i]
+                     for i in range(WARP)]
+            goods = [good(q1, q2, 4 * k, maxn) for k in range(WARP)]
+            bk = stops.index(True) if any(stops) else back_from(pos, c, maxb,
+                                                                WARP)
+            f = next((k for k, g in enumerate(goods) if g < 4), None)
+            fc = 4 * f + goods[f] if f is not None else fwd_from(
+                q1, q2, maxn, 4 * WARP)
+            model.scored += 1
+            model.bytes += fc + bk
+            return 4 + fc + bk, bk
+
+        def pat_fwd(q, pat, limit):
+            p = q
+            run = pat.to_bytes(4, "little") * WARP
+            while True:
+                model.steps += 1
+                if p + 4 * WARP <= limit and buf[p: p + 4 * WARP] == run:
+                    p += 4 * WARP                 # every lane's word matches
+                    continue
+                oks = [p + 4 * k + 4 <= limit and W[p + 4 * k] == pat
+                       for k in range(WARP)]
+                if not all(oks):
+                    p += 4 * oks.index(False)
+                    break
+                p += 4 * WARP
+            x = pat
+            for _ in range(3):
+                if not (p < limit and buf[p] == (x & 255)):
+                    break
+                p += 1
+                x = (x >> 8) | ((x << 24) & _M32)
+            model.bytes += p - q
+            return p - q
+
+        def pat_rev(q, pat, low):
+            p = q
+            run = pat.to_bytes(4, "little") * WARP
+            while True:
+                model.steps += 1
+                if p - 4 * WARP >= low + 4 and buf[p - 4 * WARP: p] == run:
+                    p -= 4 * WARP                 # every lane's word matches
+                    continue
+                oks = [p - 4 * k >= low + 4 and W[p - 4 * k - 4] == pat
+                       for k in range(WARP)]
+                if not all(oks):
+                    p -= 4 * oks.index(False)
+                    break
+                p -= 4 * WARP
+            x = pat
+            for _ in range(3):
+                if not (p > low and buf[max(p - 1, 0)] == (x >> 24)):
+                    break
+                p -= 1
+                x = ((x << 8) & _M32) | (x >> 24)
+            model.bytes += q - p
+            return q - p
+
+        def batched(pos, lowpos, lg, c, lowest, pat):
+            lookback = pos - lowpos
+            best = (lg, 0, 0)
+            f1 = read16c(lowpos + lg - 1)
+            tries = depth
+            while True:
+                lanes, cur, more = [], c, True    # the walk ahead
+                for _ in range(min(WARP, tries)):
+                    lanes.append(cur)
+                    d = chain[cur]
+                    if d == 0 or cur - d < lowest:
+                        more = False
+                        break
+                    cur -= d
+                model.candidates += len(lanes)
+                rest = [k for k, m in enumerate(lanes)
+                        if W[m] == pat and not (favor and pos - m < 8)]
+                while rest:                       # in chain order
+                    passing = [k for k in rest if read16c(
+                        lanes[k] - lookback + best[0] - 1) == f1]
+                    if not passing:
+                        break
+                    f = passing[0]
+                    cf = lanes[f]
+                    tot, bk = score(pos, cf, min(lookback, cf)
+                                    if lookback > 0 else 0)
+                    if tot > best[0]:
+                        best = (tot, pos - cf, bk)
+                        f1 = read16c(lowpos + tot - 1)
+                    rest = [k for k in rest if k > f]
+                tries -= len(lanes)
+                if not more or tries <= 0:
+                    return best
+                c = cur
+
+        def visit():
+            model.candidates += 1
+
+        search = _searcher(buf, W, n, depth, favor, head_of, chain,
+                           score=score, pat_fwd=pat_fwd, pat_rev=pat_rev,
+                           batched=batched if self.batched else None,
+                           visit=visit)
+        return _emit(buf, n, self.parse(search, n, cap_n))
+
+    # -------------------------------------------------- the segmented parse
+    def parse(self, search, n, cap_n):
+        """The block's sequences, from the speculative parses, the repairs
+        and the stitch, as the kernel runs them."""
+        S = self.segments
+        spec_cap, rep_cap = self.caps or segment_caps(cap_n, S)
+        mflimit = n - MFLIMIT
+        L = max(mflimit + 1, 0)
+        seg = -(-L // S)
+        starts = [min(w * seg, L) for w in range(S)] + [L]
+        mark = bytearray(L)
+        specs, ends = [], []
+        for w in range(S):
+            lst = []
+            st = {"last": (starts[w], 0), "full": False}
+
+            def at_scan(ip, hi=starts[w + 1], lst=lst, st=st):
+                if st["full"] or ip >= hi:
+                    return True
+                mark[ip] = 1
+                st["last"] = (ip, len(lst))
+                return False
+
+            def commit(*seq, lst=lst, st=st):
+                if len(lst) < spec_cap:
+                    lst.append(seq)
+                else:
+                    st["full"] = True
+
+            e = _machine(search, mflimit, starts[w], at_scan, commit)
+            if st["full"]:      # back to its last state-0 turn
+                e, k = st["last"]
+                del lst[k:]
+            specs.append(lst)
+            ends.append(e)
+
+        def owner(ip):
+            return ip // seg
+
+        repairs, overflow = [], False
+        for w in range(S):
+            lst, st = [], {"sync": None}
+
+            def at_scan(ip, st=st):
+                if mark[ip] and ip < ends[owner(ip)]:
+                    st["sync"] = ip
+                    return True
+                return False
+
+            def commit(*seq, lst=lst):
+                nonlocal overflow
+                if len(lst) < rep_cap:
+                    lst.append(seq)
+                else:
+                    overflow = True
+
+            _machine(search, mflimit, ends[w], at_scan, commit)
+            repairs.append((lst, st["sync"]))
+        if overflow:
+            self.fallbacks += 1
+            seqs = []
+            _machine(search, mflimit, 0, lambda ip: False,
+                     lambda *seq: seqs.append(seq))
+            return seqs
+        seqs, w = list(specs[0]), 0
+        while ends[w] <= mflimit:
+            lst, sync = repairs[w]
+            seqs += lst
+            self.repaired += len(lst)
+            if sync is None:
+                break
+            self.syncs += 1
+            w = owner(sync)
+            seqs += [s for s in specs[w] if s[0] >= sync]
+        return seqs
+
+
+def encode_blocks_hc_lockstep(src, lens, *, cap_n: int, level: int = 9,
+                              favor_dec_speed: bool = False, model=None):
+    """`encode_blocks_hc_plain` with B5's design modelled (see
+    `HCLockstepModel`; for the tests). Returns the plain version's tensors
+    and the model with its counts."""
+    _check_cap(cap_n)
+    model = model or HCLockstepModel()
+    depth = depth_for(level)
+    B = src.shape[0]
+    bound = compress_bound(cap_n)
+    out = torch.zeros((B, bound), dtype=torch.uint8)
+    csizes = torch.zeros(B, dtype=torch.int32)
+    trailing = torch.zeros(B, dtype=torch.int32)
+    chains = chain_deltas(src, lens, cap_n=cap_n).tolist()
+    src_np = src.cpu().numpy()
+    lens_l = lens.cpu().tolist()
+    pad = bytes(_PAD)
+    for b in range(B):
+        n = min(max(lens_l[b], 0), cap_n)
+        stream, trail = model.encode_one(src_np[b].tobytes() + pad, n, depth,
+                                         bool(favor_dec_speed), chains[b],
+                                         cap_n)
+        k = min(len(stream), bound)
+        out[b, :k] = torch.frombuffer(stream[:k], dtype=torch.uint8)
+        csizes[b] = len(stream)
+        trailing[b] = trail
+    return out, csizes, trailing, model

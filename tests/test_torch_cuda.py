@@ -302,6 +302,78 @@ def test_b5_random_and_edge_batches(cuda, seed):
     torch.cuda.synchronize()
 
 
+def _hc_both(cuda, src, lens, **kw):
+    """B5 on the card against the plain version: identical csizes,
+    trailing and out[:csize]; returns the streams."""
+    src_t, lens_t = torch.from_numpy(src), torch.from_numpy(lens)
+    go, gc, gt = (x.cpu() for x in encode_hc.encode_blocks_hc(
+        src_t.to(cuda), lens_t.to(cuda), **kw))
+    po, pc, pt = encode_hc.encode_blocks_hc_plain(src_t, lens_t, **kw)
+    assert torch.equal(gc, pc) and torch.equal(gt, pt), kw
+    for i, n in enumerate(pc.tolist()):
+        assert torch.equal(go[i, :n], po[i, :n]), (kw, i)
+    return [go[i, :n].numpy().tobytes() for i, n in enumerate(gc.tolist())]
+
+
+@pytest.mark.parametrize("favor", [False, True])
+def test_b5_full_rows_of_zeros_and_patterns(cuda, favor):
+    """64 KB rows at level 9: counts that run the whole row, and the
+    repeat-pattern analysis on periodic rows."""
+    rows = [bytes(65536), b"abab" * 16384, b"abcd" * 16384,
+            (b"xyz" * 21846)[:65536],
+            b"\x07" * 30000 + b"ab" * 10000 + bytes(15536)]
+    src, lens, _, _ = pack_blocks(rows, cap=65536)
+    for level in (3, 9):
+        out = _hc_both(cuda, src, lens, cap_n=65536, level=level,
+                       favor_dec_speed=favor)
+        for row, s in zip(rows, out):
+            assert blockcodec.decompress(s, len(row)) == row
+
+
+@pytest.mark.parametrize("cap", [65536, 65533, 4099])
+def test_b5_row_widths(cuda, cap):
+    """cap_n that is and is not a multiple of 4 or 16 (rows that are not
+    16-byte aligned in device memory); full rows and rows whose bytes past
+    their length are not zero."""
+    rng = np.random.default_rng(cap)
+    blocks = _random_blocks(rng, 4, cap) + [gen_text(cap, seed=cap),
+                                            gen_buffer(cap, 0.9, seed=1)]
+    src, lens, _, _ = pack_blocks(blocks, cap=cap)
+    src[:, :] = np.where(np.arange(cap)[None, :] < lens[:, None], src,
+                         rng.integers(0, 256, src.shape, dtype=np.uint8))
+    lens[-1] = cap - 7
+    for level, favor in ((3, False), (9, False), (5, True)):
+        _hc_both(cuda, src, lens, cap_n=cap, level=level,
+                 favor_dec_speed=favor)
+
+
+def test_b5_lengths_under_13(cuda):
+    """Rows of 0-12 bytes (no search: mflimit < 0) and 13-16, with other
+    bytes behind their length; lengths outside [0, cap_n] clamp."""
+    rng = np.random.default_rng(13)
+    cap = 64
+    src = rng.integers(0, 256, (21, cap), dtype=np.uint8)
+    src[::3] = np.frombuffer(b"ab" * (cap // 2), np.uint8)
+    lens = np.array(list(range(17)) + [-4, cap + 9, cap, 12], np.int32)
+    for level in (3, 9):
+        for favor in (False, True):
+            _hc_both(cuda, src, lens, cap_n=cap, level=level,
+                     favor_dec_speed=favor)
+
+
+def test_b5_more_than_one_wave(cuda):
+    """One call of 300 blocks, more than one CTA per SM: a block's bytes
+    do not depend on its place in the batch."""
+    rng = np.random.default_rng(132)
+    blocks = _random_blocks(rng, 300, 4096)
+    src, lens, _, _ = pack_blocks(blocks, cap=4096)
+    fwd = _hc_both(cuda, src, lens, cap_n=4096, level=9)
+    rev = _hc_both(cuda, src[::-1].copy(), lens[::-1].copy(), cap_n=4096,
+                   level=9)
+    assert rev[::-1] == fwd
+    _hc_both(cuda, src, lens, cap_n=4096, level=4, favor_dec_speed=True)
+
+
 @pytest.mark.parametrize("seed", [0, 0xFFFFFFFF, 12345])
 def test_b6_random_rows(cuda, seed):
     rng = np.random.default_rng(seed & 0xFFFF)

@@ -20,7 +20,7 @@ from lz4_tpu_torch.block.encode_hc import encode_blocks_hc
 from lz4_tpu_torch.block.encode_wave import find_matches_batch
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
-from lz4_tpu_torch.probes import b1_split
+from lz4_tpu_torch.probes import b1_split, b5_split
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.xxh32_device import xxh32_blocks
 
@@ -152,4 +152,11 @@ def test_library_key_covers_headers_and_defines(monkeypatch, tmp_path):
 def test_probe_needs_a_gpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert b1_split.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_b5_probe_needs_a_gpu(monkeypatch, capsys):
+    assert "lz4_tpu_torch.probes.b5_split" in _modules()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert b5_split.main([]) != 0
     assert capsys.readouterr().out == ""
