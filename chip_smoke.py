@@ -16,12 +16,16 @@ just before it and read just after:
 - the `max_dist=2048` path: B4 plus the host C emitter, round-tripped
   through the wave tier and the host C decoder;
 - frames: 16 MB linked and independent frames through the sequential
-  frame layer (B1, B2 for linked blocks, B3), and 128 streams x 384 KiB
-  through the batch frame surfaces (B4, B3), linked frames also through
-  the sequential decoder (B2);
+  frame layer (B1; 4 MB linked blocks decode on the host, and on B2 with
+  `decode_dest` "device"; 64 KB independent ones on B3), and 128 streams
+  x 384 KiB through the batch frame surfaces (B4, B3), linked frames also
+  through the sequential decoder (B2);
 - the HC path: `TorchBackend.compress_batch(level=L)`, L = 3 and 9, over
   the 48 MB corpus in 64 KB blocks (one B5 launch each), byte-identical
   to the host C `compress_hc` and round-tripped;
+- the level-2 path: the same batch on the sort/scan encoder (torch ops,
+  no kernel launch), its bytes equal to the CPU's on sampled rows, a dict
+  batch and blocks over 64 KB, round-tripped through the host C decoder;
 - the CLI in process: `-9 -B4` (B5), `-d` and `-t` on a 16 MB file, and
   a default `-1` round trip;
 - the port's bench at 8 MB and 1 s per timed loop (its round-trip check
@@ -50,7 +54,7 @@ import torch
 
 from lz4_tpu_torch import _build, bench, cli, native, xxh32_device
 from lz4_tpu_torch.block import (decode_cuda, decode_wave, encode_cuda,
-                                 encode_hc, encode_wave)
+                                 encode_hc, encode_sortscan, encode_wave)
 from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
 from lz4_tpu_torch.frame import batch as frame_batch
@@ -129,6 +133,17 @@ def b5_resources() -> dict:
     regs = re.findall(r"Used (\d+) registers", _build.build_log("encode_hc"))
     return {"registers": int(regs[0]) if regs else None,
             "smem_bytes": int(lib.lz4t_encode_hc_smem())}
+
+
+def b4_resources() -> dict:
+    """B4's registers per thread (nvcc's report), and the dynamic shared
+    memory and threads of each CTA at the max_dist path's hash_bits (the
+    kernel's own figures)."""
+    lib = ctypes.CDLL(_build.library_path("encode_wave"))
+    regs = re.findall(r"Used (\d+) registers", _build.build_log("encode_wave"))
+    return {"registers": int(regs[0]) if regs else None,
+            "smem_bytes": int(lib.lz4t_encode_wave_smem(encode_wave.HASH_BITS)),
+            "threads": int(lib.lz4t_encode_wave_threads())}
 
 
 def reset_launches():
@@ -432,13 +447,17 @@ def phase_kernels_vs_plain():
     log("B3 == plain: B1, HC and 1-piece streams, NP 4/16/64, "
         "64 KB history")
 
-    # B4 decisions: tiny, all-zero and random blocks, no-dict and linked
-    wblocks = [b"Q", b"abc" * 5, bytes(13), b"\x00" * 8000, rng.bytes(6000),
-               gen_text(20000, seed=10), gen_buffer(9000, 0.8, seed=11)]
+    # B4 decisions: tiny, all-zero and random blocks, a 4-value byte pool
+    # (equal hashes in one warp step), lengths of every residue mod 4,
+    # runs over 16 KB (the force-end), no-dict and linked
+    wblocks = [b"Q", b"abc" * 5, bytes(13), b"\x00" * 8000, rng.bytes(6001),
+               gen_text(20002, seed=10), gen_buffer(9003, 0.8, seed=11),
+               bytes(rng.integers(0, 4, 9000, dtype=np.uint8)),
+               b"\x00" * 40000, b"abc" * 13334]
     n_rows = encode_wave.rows_for(max(len(b) for b in wblocks))
     htext = np.frombuffer(gen_text(70000, seed=12), np.uint8)
-    for hb in (9, 10):
-        for md in (1024, 2048, 65535):
+    for hb in (9, 10, 15):
+        for md in ((1024, 2048, 65535) if hb < 15 else (2048, 65534)):
             find_matches_case(wblocks, max_dist=md, hash_bits=hb)
             wr = encode_wave.history_rows(md, n_rows)
             hist_t = torch.from_numpy(np.tile(htext[-wr * 4:],
@@ -447,8 +466,8 @@ def phase_kernels_vs_plain():
                 hlen = torch.full((len(wblocks),), hl, dtype=torch.int32)
                 find_matches_case(wblocks, max_dist=md, hash_bits=hb,
                                   hist=hist_t, hlen=hlen)
-    log("B4 == plain: hash_bits 9/10, max_dist 1024/2048/65535, no-dict "
-        "and linked (full and partial history)")
+    log("B4 == plain: hash_bits 9/10/15, max_dist 1024/2048/65534/65535, "
+        "no-dict and linked (full and partial history), runs over 16 KB")
     return enc_err, dec_err, w_err, 0
 
 
@@ -665,18 +684,32 @@ def phase_frames(be):
         if back != data:
             raise AssertionError(f"frame round trip failed (bsid {bsid})")
         after = read_launches()
-        # 4 MB linked blocks decode on B2, 64 KB independent ones on B3
-        dec_kernel = "B3" if independent else "B2"
-        if not (after["B1"] > before["B1"]
-                and after[dec_kernel] > before[dec_kernel]):
-            raise AssertionError(f"frame path skipped a kernel: {before} "
+        # 64 KB independent blocks decode on B3; 4 MB linked blocks on the
+        # host (outputs over 256 KB, decode_dest "auto"), as in TpuBackend
+        if independent:
+            route_ok = after["B3"] > before["B3"]
+        else:
+            route_ok = after["B2"] == before["B2"] and \
+                after["B3"] == before["B3"]
+        if not (after["B1"] > before["B1"] and route_ok):
+            raise AssertionError(f"frame path took a wrong route: {before} "
                                  f"-> {after}")
         kind = "independent" if independent else "linked"
         log(f"frame ok: 16 MB, {kind} "
             f"{FrameInfo(block_size_id=bsid).block_max_size >> 10} KB "
             f"blocks, ratio {len(data) / len(frame):.4f}, compress "
             f"{t_c:.1f} ms, decompress {t_d:.1f} ms (host clock, "
-            f"checksums in C)")
+            f"checksums in C; decode on "
+            f"{'B3' if independent else 'the host, B2 launches 0'})")
+        if not independent:
+            be.decode_dest = "device"
+            mid = read_launches()
+            t_b2, back = host_ms(lambda: decompress_frame(frame, backend=be))
+            be.decode_dest = "auto"
+            if back != data or read_launches()["B2"] <= mid["B2"]:
+                raise AssertionError("decode_dest 'device' skipped B2")
+            log(f"the same frame with decode_dest 'device' (4 MB blocks on "
+                f"B2, one warp each): decompress {t_b2:.1f} ms (host clock)")
 
 
 def phase_batch_frames(be):
@@ -864,6 +897,100 @@ def phase_hc_path(be):
     return res
 
 
+def phase_level2(be):
+    """compress_batch(level=2) over the 48 MB corpus: the sort/scan
+    encoder as torch ops on the card (no kernel launch), its bytes equal
+    to the same module's on the CPU on sampled rows, a dict batch and
+    blocks over 64 KB, round-tripped through the host C decoder."""
+    data = real_corpus(CORPUS)
+    blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
+    B = len(blocks)
+    mb = len(data) / 1e6
+    host, cpu = HostBackend(), TorchBackend("cpu")
+    d0 = be.device_hc_encoded
+    reset_launches()
+    comp = be.compress_batch(blocks, level=2)
+    launches = read_launches()
+    if sum(launches.values()) or be.device_hc_encoded != d0 + 1:
+        raise AssertionError(f"level 2 left the sort/scan route: {launches}, "
+                             f"device_hc_encoded {be.device_hc_encoded - d0}")
+    if host.decompress_batch(comp, [BLOCK] * B) != blocks:
+        raise AssertionError("level 2 streams fail the host C decoder")
+    rows = list(range(0, B, B // 8))[:8]
+    t_cpu, want = host_ms(lambda: cpu.compress_batch(
+        [blocks[i] for i in rows], level=2))
+    if [comp[i] for i in rows] != want:
+        raise AssertionError("level 2 on the card differs from the CPU")
+    # a dict batch (each block with the one before it as its dict) and
+    # blocks over 64 KB (linked segments in dict mode, then merged)
+    dblocks, prefixes = blocks[1:17], blocks[:16]
+    got = be.compress_batch(dblocks, level=2, dict_prefixes=prefixes)
+    if got != cpu.compress_batch(dblocks, level=2, dict_prefixes=prefixes) \
+            or host.decompress_batch(got, [BLOCK] * 16,
+                                     dict_prefixes=prefixes) != dblocks:
+        raise AssertionError("level 2 dict batch differs or fails to decode")
+    big = [data[: 300000], data[300000: 1 << 20]]
+    got = be.compress_batch(big, level=2)
+    if got != cpu.compress_batch(big, level=2) or \
+            host.decompress_batch(got, [1 << 20] * 2) != big:
+        raise AssertionError("level 2 blocks over 64 KB differ or fail")
+    csum = sum(len(c) for c in comp)
+    e2e = cuda_ms(lambda: be.compress_batch(blocks, level=2), runs=2)
+    log(f"level 2 path ok: {B} blocks, ratio {len(data) / csum:.4f}, "
+        f"compress {mb / e2e * 1e3:.1f} MB/s ({e2e:.3f} ms), launches "
+        f"{launches}; == the CPU on {len(rows)} rows ({t_cpu:.1f} ms there), "
+        "a 16-block dict batch and 300 KB / 748 KB blocks; host C decode ok")
+
+    steps = {}
+    src, lens, _, _ = stage(steps, "pack", lambda: pack_blocks(blocks,
+                                                               cap=BLOCK))
+    src_d, lens_d, _, _ = stage(steps, "h2d", lambda: to_device_batch(
+        src, lens, device="cuda"))
+    out = stage(steps, "sortscan", lambda: encode_sortscan.encode_blocks(
+        src_d, lens_d, cap_n=BLOCK, has_dict=False, n_cand=8, lazy=True))
+    host_out = stage(steps, "d2h", lambda: (out[0].cpu().numpy(),
+                                            out[1].cpu().tolist()))
+    stage(steps, "to_bytes", lambda: [
+        host_out[0][i, : host_out[1][i]].tobytes() for i in range(B)])
+    log("level 2 compress steps (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in steps.items()))
+    # the hop parse of one chunk of rows: pointer doubling and the loop
+    R = encode_sortscan.chunk_rows(BLOCK, src_d.device)
+    tabs = encode_sortscan._match_tables(
+        src_d[:R].long(), lens_d[:R].long(),
+        torch.zeros(min(R, B), dtype=torch.long, device="cuda"), d0=0,
+        n_cand=8, lazy=True, lite=False)
+    hops = {}
+    for name, fn, runs in (("doubling", encode_sortscan._parse_hops, 2),
+                           ("loop", encode_sortscan._parse_hops_loop, 1)):
+        hops[name] = fn(tabs[0], tabs[1], d0=0, cap_n=BLOCK)
+        hops[name + "_ms"] = cuda_ms(lambda: fn(tabs[0], tabs[1], d0=0,
+                                                cap_n=BLOCK), runs=runs)
+    if not torch.equal(hops["doubling"], hops["loop"]):
+        raise AssertionError("hop parses disagree")
+    tok = int((hops["doubling"] < BLOCK).sum())
+    t_dbl, t_loop = hops["doubling_ms"], hops["loop_ms"]
+    log(f"level 2 hop parse of one chunk ({min(R, B)} rows, {tok} tokens): "
+        f"pointer doubling {t_dbl:.3f} ms, one gather per hop "
+        f"{t_loop:.3f} ms")
+    # one chunk's device memory, held to the budget it is sized by
+    del tabs, hops
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    encode_sortscan.encode_blocks(src_d[:R], lens_d[:R], cap_n=BLOCK,
+                                  has_dict=False, n_cand=8, lazy=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    budget = encode_sortscan.BUDGET["cuda"]
+    log(f"level 2 chunk of {min(R, B)} rows: peak device memory "
+        f"{peak / 2**30:.3f} GiB of its {budget / 2**30:.0f} GiB budget, "
+        f"{peak / (min(R, B) * BLOCK * 8):.2f} int64 lanes a position "
+        f"(sized by {encode_sortscan._LANES})")
+    if peak > budget:
+        raise AssertionError("a level 2 chunk exceeds its memory budget")
+
+
 def phase_cli():
     """The CLI in process on a 16 MB file: -9 -B4 (B5), -d, -t, and a
     default -1 round trip; the files are compared byte for byte."""
@@ -942,6 +1069,7 @@ def main() -> int:
     phase_frames(be)
     phase_batch_frames(be)
     hc = phase_hc_path(be)
+    phase_level2(be)
     phase_cli()
     bench_launches = phase_bench()
 
@@ -976,7 +1104,7 @@ def main() -> int:
          "launches": md["launches"]["B4"], "path": "max_dist",
          "max_abs_err": max(match_err, md["err"]),
          "ms": md["ms"], "plain_ms": md["plain_ms"],
-         "bound_ms": md["bound_ms"], **common},
+         "bound_ms": md["bound_ms"], **b4_resources(), **common},
         {"name": "B5 encode_hc",
          "source": "lz4_tpu_torch/csrc/encode_hc.cu",
          "replaces": "lz4_tpu/block/encode_hc_pallas.py:67",

@@ -41,7 +41,7 @@ KERNELS = {
                       (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "decode_wave": ("lz4t_decode_wave", (_P, _P, _P, _P, _I, _I, _P)),
     "encode_wave": ("lz4t_encode_wave",
-                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "encode_hc": ("lz4t_encode_hc", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P)),
     "xxh32": ("lz4t_xxh32_blocks", (_P, _P, _P, _I, _I, _U, _P)),

@@ -1,6 +1,7 @@
 """Wave-tier block encode: kernel B4 (`csrc/encode_wave.cu`), the lockstep
-match finder, and its plain PyTorch version, with the batch and linked
-entry points and the Python emitter.
+match finder, its plain PyTorch version and a model of the kernel's warp
+lane by lane (`WaveLockstepModel`, for the tests), with the batch and
+linked entry points and the Python emitter.
 
 The match finder scans each block once and writes one decision word per
 4 input bytes: off | sub << 16 | (mlen - 4) << 18 for a match of mlen
@@ -29,7 +30,7 @@ HASH_BITS = 10             # log2 buckets per block (2 candidates each)
 MAX_DIST = 2048            # default offset cap
 MAX_MLEN = 16384           # force-end bound (14-bit mlen field)
 KNUTH = 2654435761
-#: widest table the kernel's shared memory holds for one block
+#: widest table the kernel holds in shared memory (128 KB)
 MAX_HASH_BITS = 15
 
 #: kernel launches made by `find_matches` (and nowhere else)
@@ -137,13 +138,6 @@ def find_matches(inp: torch.Tensor, lens: torch.Tensor,
         return dec
     if inp.data_ptr() % 4:
         raise ValueError("inp must be 4-byte aligned")
-    props = torch.cuda.get_device_properties(inp.device)
-    table = 4 << hash_bits
-    fit = props.shared_memory_per_block_optin // table
-    if fit < 1:
-        raise ValueError(f"hash_bits={hash_bits}: a {table}-byte table "
-                         "does not fit in shared memory")
-    threads = max(1, min(32, fit, -(-B // props.multi_processor_count)))
     from lz4_tpu_torch import _build
     fn = _build.load("encode_wave")
     wr = 0 if hist is None else hist.shape[1] // 4
@@ -152,8 +146,7 @@ def find_matches(inp: torch.Tensor, lens: torch.Tensor,
         rc = fn(inp.data_ptr(), lens.data_ptr(),
                 None if hist is None else hist.data_ptr(),
                 None if hlen is None else hlen.data_ptr(), dec.data_ptr(),
-                B, n_rows, wr, int(max_dist), int(hash_bits), threads,
-                stream)
+                B, n_rows, wr, int(max_dist), int(hash_bits), stream)
     if rc != 0:
         raise RuntimeError(f"B4 encode_wave launch failed: CUDA error {rc}")
     launches += 1
@@ -245,6 +238,193 @@ def find_matches_plain(inp: torch.Tensor, lens: torch.Tensor,
                            None if h_np is None else h_np[b], hl_l[b],
                            n_rows, max_dist, hash_bits)
     return torch.from_numpy(out.view(np.int32))
+
+
+# --------------------------------------------------------------------------
+# the kernel's warp, lane by lane (for the tests)
+# --------------------------------------------------------------------------
+
+WARP = 32
+
+
+class WaveLockstepModel:
+    """What one warp of B4 does with one block, lane by lane: 32
+    positions a step. `insert_step` is the table's probe and insert for
+    32 positions at once (peer groups of equal hash among the inserting
+    lanes, the nearest and second-nearest lower peers standing for the
+    entry a lane would have read in serial order, the highest inserting
+    lane of each group writing back); `run` then takes the start / verify
+    / end machine over the step: each startable lane first measures its
+    agreement (the bytes its start would verify, to the step's end), so
+    a start ends where its agreement or the block's end says without a
+    byte read; only a match carried into the step verifies by a ballot
+    over byte compares. `steps` and `rounds` count the warp steps and the
+    rounds of the machine."""
+
+    def __init__(self, x, n, hb, hl, max_dist, hash_bits):
+        self.x = x                     # the row, uint8
+        self.n = n
+        self.hb = hb                   # history row or None
+        self.hl = hl
+        self.max_dist = max_dist
+        self.shift = 32 - hash_bits
+        self.table = [0xFFFFFFFF] * (1 << hash_bits)
+        self.steps = 0
+        self.rounds = 0
+
+    def _hash(self, v):
+        return ((v * KNUTH) & 0xFFFFFFFF) >> self.shift
+
+    def insert_step(self, hs, pos16, ins):
+        """Probe and insert 32 lanes at once: hs the lanes' hashes, pos16
+        their 16-bit positions, ins whether each inserts. Returns the
+        entry each lane sees (the serial order's)."""
+        seen = []
+        for lane in range(WARP):
+            peers = [j for j in range(lane) if ins[j] and hs[j] == hs[lane]]
+            old = self.table[hs[lane]]
+            if len(peers) >= 2:
+                ent = pos16[peers[-1]] | (pos16[peers[-2]] << 16)
+            elif peers:
+                ent = pos16[peers[-1]] | ((old & 0xFFFF) << 16)
+            else:
+                ent = old
+            seen.append(ent)
+        for lane in range(WARP):
+            if ins[lane] and not any(ins[j] and hs[j] == hs[lane]
+                                     for j in range(lane + 1, WARP)):
+                self.table[hs[lane]] = ((seen[lane] << 16)
+                                        | pos16[lane]) & 0xFFFFFFFF
+        return seen
+
+    def warmup(self):
+        """Seed the table from the history tail, 32 positions a step."""
+        hb = self.hb
+        wr = hb.size // 4
+        m = 4 * (wr - 1)
+        for j0 in range(0, m, WARP):
+            js = [j0 + k for k in range(WARP)]
+            ps = [-4 * wr + j for j in js]
+            ins = [j < m and p >= -self.hl for j, p in zip(js, ps)]
+            hs = [self._hash(int(hb[j]) | (int(hb[j + 1]) << 8)
+                             | (int(hb[j + 2]) << 16)
+                             | (int(hb[j + 3]) << 24)) if j < m else 0
+                  for j in js]
+            self.insert_step(hs, [p & 0xFFFF for p in ps], ins)
+
+    def byte(self, src, q_end):
+        if src >= 0:
+            return int(self.x[src]) if src < q_end else 0
+        if self.hb is None:
+            return 0
+        hj = src + self.hb.size
+        return int(self.hb[hj]) if hj >= 0 else 0
+
+    def run(self, n_rows):
+        x, n = self.x, self.n
+        q_end = min(n, x.size)
+        linked = self.hb is not None
+        if linked:
+            self.warmup()
+        xp = np.zeros(x.size + 2 * WARP, np.uint32)
+        xp[:q_end] = x[:q_end]
+        dec = [0] * n_rows
+        mode = cand = a = 0
+        for base in range(0, q_end, WARP):
+            self.steps += 1
+            qs = [base + k for k in range(WARP)]
+            active = [q < q_end for q in qs]
+            cur4 = [int(xp[q] | (xp[q + 1] << 8) | (xp[q + 2] << 16)
+                        | (xp[q + 3] << 24)) if q < q_end else 0
+                    for q in qs]
+            hs = [self._hash(v) for v in cur4]
+            ins = [act and q + 4 <= n for act, q in zip(active, qs)]
+            seen = self.insert_step(hs, [q & 0xFFFF for q in qs], ins)
+            ok, cnd = [], []
+            for q, ent in zip(qs, seen):
+                c1, c2 = ent & 0xFFFF, ent >> 16
+                if linked:
+                    d1, d2 = (q - c1) & 0xFFFF, (q - c2) & 0xFFFF
+                    ok1 = (1 <= d1 <= self.max_dist and d1 <= q + self.hl
+                           and c1 != 0xFFFF)
+                    ok2 = (1 <= d2 <= self.max_dist and d2 <= q + self.hl
+                           and c2 != 0xFFFF)
+                    cnd.append(q - (d1 if ok1 else d2))
+                else:
+                    ok1 = 1 <= q - c1 <= self.max_dist
+                    ok2 = 1 <= q - c2 <= self.max_dist
+                    cnd.append(c1 if ok1 else c2)
+                ok.append(ok1 or ok2)
+            startable = [act and o and q <= n - 12
+                         for act, o, q in zip(active, ok, qs)]
+            # each startable lane's agreement: the bytes a start there
+            # would verify before its first mismatch, to the step's end
+            agree = []
+            for k in range(WARP):
+                m = 0
+                if startable[k]:
+                    while m < WARP - k and self.byte(cnd[k] + m, q_end) \
+                            == int(xp[qs[k] + m]):
+                        m += 1
+                agree.append(m)
+            # a match must end at the first lane with q >= len - 5; lanes
+            # from `stop` on are past the scan
+            lim = next((k for k in range(WARP) if qs[k] >= n - 5), WARP)
+            stop = min(WARP, q_end - base)
+            lane = 0
+            if mode == 1:                  # a match carried from the last step
+                self.rounds += 1
+                fail = [k for k in range(WARP) if active[k] and not (
+                    self.byte(cand + qs[k] - a, q_end) == cur4[k] & 255
+                    and qs[k] < n - 5 and qs[k] - a < MAX_MLEN + 3)]
+                if not fail:
+                    continue               # it runs into the next step
+                f = fail[0]
+                mlen = qs[f] - a
+                if mlen >= 4:
+                    dec[qs[f] >> 2] = ((a - cand) | ((qs[f] & 3) << 16)
+                                       | ((mlen - 4) << 18))
+                mode = 0
+                lane = f + 1
+            while True:
+                self.rounds += 1
+                s = [k for k in range(lane, WARP)
+                     if startable[k] and agree[k]]
+                if not s:
+                    break
+                k = s[0]
+                e = min(k + agree[k], lim)
+                if e >= stop:              # it runs past the step
+                    cand, a, mode = cnd[k], qs[k], 1
+                    break
+                if e - k >= 4:
+                    dec[qs[e] >> 2] = ((qs[k] - cnd[k]) | ((qs[e] & 3) << 16)
+                                       | ((e - k - 4) << 18))
+                lane = e + 1
+        return dec
+
+
+def find_matches_lockstep(inp: torch.Tensor, lens: torch.Tensor,
+                          hist: torch.Tensor | None = None,
+                          hlen: torch.Tensor | None = None, *,
+                          max_dist: int = MAX_DIST,
+                          hash_bits: int = HASH_BITS):
+    """Decisions int32[B, n_rows] from the warp model (CPU tensors), and
+    the models (one per block)."""
+    _check(inp, lens, hist, hlen, hash_bits)
+    B, row = inp.shape
+    n_rows = row // 4
+    x_np = inp.cpu().numpy()
+    h_np = None if hist is None else hist.cpu().numpy()
+    hl_l = [0] * B if hlen is None else hlen.cpu().tolist()
+    out = np.zeros((B, n_rows), np.uint32)
+    models = []
+    for b, n in enumerate(lens.cpu().tolist()):
+        m = WaveLockstepModel(x_np[b], n, None if h_np is None else h_np[b],
+                              hl_l[b], max_dist, hash_bits)
+        out[b] = m.run(n_rows)
+        models.append(m)
+    return torch.from_numpy(out.view(np.int32)), models
 
 
 # --------------------------------------------------------------------------

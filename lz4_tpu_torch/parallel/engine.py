@@ -5,24 +5,31 @@ The frame layer hands it whole lists of blocks; each list becomes one
 padded batch and one kernel launch, with one block per CTA, warp or
 thread. Every table the kernels use is fresh per block, so a batch of any
 size gives every block the same result, and there is no fixed dispatch
-width to pad to. The routes, as in `TpuBackend`:
+width to pad to. The routes follow `TpuBackend`'s, in its order:
 
-- decompress, no dict and every block <= 64 KB (`wave_decode`): the host
-  C wave splitter, then one B3 launch. A stream the splitter rejects
-  sends the batch to `HostBackend`, which raises the canonical error
-  (counted in `host_fallbacks`). Everything else: B2.
+- decompress, no dict and every output <= 64 KB (`wave_decode`): the
+  host C wave splitter, then one B3 launch. A stream the splitter
+  rejects sends the batch to `HostBackend`, which raises the canonical
+  error (counted in `host_fallbacks`). Then the size gates: a batch
+  whose blocks and outputs are all under `min_device_size`, outputs over
+  `max_device_decode_size`, and outputs over 256 KB unless `decode_dest`
+  is "device" go to `HostBackend`. Everything else: B2. (With "device",
+  `TpuBackend` decodes the tiers over 256 KB as linked 64 KB piece
+  waves; the port keeps B2 for them until that route is ported. The
+  bytes are the same.)
 - compress, `max_dist` < 65535: level < 2, no dict and every block <=
   64 KB run B4 plus the host C emitter (`wave_encode`; B1 with its cap
   when it is off); anything else goes to `HostBackend`, which raises for
   HC levels.
 - compress, HC levels: levels 3-9 of a no-dict batch whose largest block
   lies in [`min_device_size`, 64 KB], without `favor_dec_speed`, run on
-  B5, one launch per batch (counted in `hc_encoded`). Level 2 (the JAX
-  package's sort/scan tier, not ported yet), levels 10-12, dict batches,
-  larger or smaller blocks and `favor_dec_speed` go to `HostBackend`.
-- compress, level <= 1: B1, unless the largest block is under
-  `min_device_size` or over `max_device_size`; those batches go to
-  `HostBackend`, as in `TpuBackend`.
+  B5, one launch per batch (counted in `hc_encoded`). Level 2 runs the
+  sort/scan encoder (`block/encode_sortscan.py`, torch ops: 8 candidates,
+  lazy arbitration) whatever `favor_dec_speed` is, dict batches and
+  blocks over 64 KB included (counted in `device_hc_encoded`). Levels
+  10-12 and the other level 3-9 batches go to `HostBackend`.
+- compress, level <= 1: B1. Level <= 2 batches whose largest block is
+  under `min_device_size` or over `max_device_size` go to `HostBackend`.
 
 Blocks above the 64 KB tier are encoded as linked 64 KB segments (each
 sees the 64 KB before it as history) and folded back into one LZ4 block
@@ -32,6 +39,7 @@ are plain distances and stay valid across the merge.
 """
 from __future__ import annotations
 
+from lz4_tpu_torch.block import encode_sortscan
 from lz4_tpu_torch.block.backend import BlockDecodeError, HostBackend
 from lz4_tpu_torch.block.batch import (DICT_CAP, pack_blocks,
                                        resolve_device, to_device_batch)
@@ -44,6 +52,11 @@ from lz4_tpu_torch.block.encode_wave import HASH_BITS, encode_wave_batch
 SEG = 65536
 #: HC levels served by kernel B5 (`lz4_tpu` engine.py:576)
 HC_DEVICE_LEVELS = range(3, 10)
+#: level 2's candidate count on the sort/scan encoder (engine.py:453)
+HC_N_CAND = 8
+#: outputs above this tier decode on the host unless decode_dest is
+#: "device" (engine.py:826)
+DEST_TIER = 1 << 18
 
 
 def _pad_cap(n: int, floor: int = 65536) -> int:
@@ -109,46 +122,58 @@ def merge_segment_streams(block_src: bytes, streams, trailings) -> bytes:
 
 class TorchBackend:
     """BlockBackend (lz4_tpu_torch.block.backend protocol) running block
-    batches through kernels B1-B5 on `device` (the GPU when None; it
-    raises where there is none). On a CPU device the same calls run the
-    kernels' plain PyTorch versions. The routes are the module
-    docstring's; `min_device_size` and `max_device_size` bound the
-    largest block of a batch sent to B1 (and `min_device_size` that of
-    one sent to B5), defaulting as in `TpuBackend`.
+    batches through kernels B1-B5 and the sort/scan encoder on `device`
+    (the GPU when None; it raises where there is none). On a CPU device
+    the same calls run the kernels' plain PyTorch versions. The routes
+    are the module docstring's; `min_device_size`, `max_device_size` and
+    `max_device_decode_size` default as in `TpuBackend`.
 
-    `wave_decode` and `wave_encode` switch the wave routes. `wave_decoded`,
-    `wave_encoded` and `hc_encoded` count the batches each route served;
+    `wave_decode` and `wave_encode` switch the wave routes; `decode_dest`
+    ("auto" or "device") sends decodes of outputs over 256 KB to the host
+    or to B2. `wave_decoded`, `wave_encoded`, `hc_encoded` (B5) and
+    `device_hc_encoded` (level 2) count the batches each route served;
     `host_fallbacks` counts the batches the wave splitter rejected."""
 
     wave_decode = True
     wave_encode = True
+    decode_dest = "auto"
 
     def __init__(self, device=None, min_device_size: int = 4096,
-                 max_device_size: int = 4 * 1024 * 1024):
+                 max_device_size: int = 4 * 1024 * 1024,
+                 max_device_decode_size: int = 4 * 1024 * 1024):
         self.device = resolve_device(device)
         self.min_device_size = min_device_size
         self.max_device_size = max_device_size
+        self.max_device_decode_size = max_device_decode_size
         self.wave_decoded = 0
         self.wave_encoded = 0
         self.hc_encoded = 0
+        self.device_hc_encoded = 0
         self.host_fallbacks = 0
 
     def _encode(self, blocks, dict_prefixes, *, cap_n, has_dict,
-                acceleration, max_dist):
-        """One launch over the padded batch; returns (list[bytes]
-        streams, list[int] trailing literal runs)."""
-        arrays = pack_blocks(blocks, dict_prefixes, cap=cap_n,
-                             with_dict=has_dict)
-        out, csizes, trailing = encode_blocks(
-            *to_device_batch(*arrays, device=self.device), cap_n=cap_n,
-            acceleration=acceleration, max_dist=max_dist)
+                acceleration, max_dist, level=1):
+        """One padded batch on the fast-tier encoder (B1), or at level 2
+        on the sort/scan encoder; returns (list[bytes] streams, list[int]
+        trailing literal runs)."""
+        arrays = to_device_batch(*pack_blocks(
+            blocks, dict_prefixes, cap=cap_n, with_dict=has_dict),
+            device=self.device)
+        if level == 2:
+            out, csizes, trailing = encode_sortscan.encode_blocks(
+                *arrays, cap_n=cap_n, has_dict=has_dict,
+                n_cand=HC_N_CAND, lazy=True)
+        else:
+            out, csizes, trailing = encode_blocks(
+                *arrays, cap_n=cap_n, acceleration=acceleration,
+                max_dist=max_dist)
         out = out.cpu().numpy()
         csizes = csizes.cpu().tolist()
         return ([out[i, : csizes[i]].tobytes() for i in range(len(blocks))],
                 trailing.cpu().tolist())
 
     def _compress_big_batch(self, blocks, dict_prefixes, *, acceleration,
-                            max_dist):
+                            max_dist, level=1):
         """Blocks above the 64 KB tier: linked 64 KB segments in one
         launch, then the segment seams folded host-side."""
         seg_blocks, seg_dicts, counts = [], [], []
@@ -166,7 +191,7 @@ class TorchBackend:
             counts.append(m)
         comp, trail = self._encode(seg_blocks, seg_dicts, cap_n=SEG,
                                    has_dict=True, acceleration=acceleration,
-                                   max_dist=max_dist)
+                                   max_dist=max_dist, level=level)
         results, idx = [], 0
         for b, m in zip(blocks, counts):
             results.append(merge_segment_streams(
@@ -193,19 +218,24 @@ class TorchBackend:
                 and not favor_dec_speed):
             self.hc_encoded += 1
             return self._compress_hc(blocks, level=level)
-        if level >= 2 or not (self.min_device_size <= mx
-                              <= self.max_device_size):
+        # level 2 runs on the sort/scan encoder whatever favor_dec_speed
+        # is (lz4_tpu engine.py:641-678); the other HC cases and blocks
+        # outside the size gate go to the host tier
+        if level > 2 or not (self.min_device_size <= mx
+                             <= self.max_device_size):
             return HostBackend().compress_batch(
                 blocks, level=level, acceleration=acceleration,
                 dict_prefixes=dict_prefixes,
                 favor_dec_speed=favor_dec_speed)
+        if level == 2:
+            self.device_hc_encoded += 1
         if mx > SEG:
             return self._compress_big_batch(
                 blocks, dict_prefixes, acceleration=acceleration,
-                max_dist=max_dist)
+                max_dist=max_dist, level=level)
         out, _ = self._encode(blocks, dict_prefixes, cap_n=_pad_cap(mx),
                               has_dict=has_dict, acceleration=acceleration,
-                              max_dist=max_dist)
+                              max_dist=max_dist, level=level)
         return out
 
     def _compress_hc(self, blocks, *, level):
@@ -260,7 +290,8 @@ class TorchBackend:
             return []
         has_dict = dict_prefixes is not None and any(
             d for d in dict_prefixes)
-        if self.wave_decode and not has_dict and max(max_outs) <= SEG:
+        mo = max(max_outs)
+        if self.wave_decode and not has_dict and mo <= SEG:
             out = self.decompress_batch_wave(blocks, max_outs)
             if out is not None:
                 self.wave_decoded += 1
@@ -268,9 +299,16 @@ class TorchBackend:
             # the strict host decoder raises the canonical error
             self.host_fallbacks += 1
             return HostBackend().decompress_batch(blocks, max_outs)
+        # the size gates of lz4_tpu engine.py:816-837, in its order
+        if (max(len(b) for b in blocks) < self.min_device_size
+                and mo < self.min_device_size) \
+                or mo > self.max_device_decode_size \
+                or (mo > DEST_TIER and self.decode_dest != "device"):
+            return HostBackend().decompress_batch(
+                blocks, max_outs, dict_prefixes=dict_prefixes)
         # one output tier covers the batch; reads past the longest stream
         # read 0, so the input row needs no compress_bound padding
-        cap_out = _pad_cap(max(max_outs))
+        cap_out = _pad_cap(mo)
         cap_in = max(1, max(len(b) for b in blocks))
         arrays = pack_blocks(blocks, dict_prefixes, cap=cap_in,
                              with_dict=has_dict)

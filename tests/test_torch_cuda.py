@@ -399,3 +399,58 @@ def test_backend_hc_route_on_card(cuda):
         assert ours == HostBackend().compress_batch(blocks, level=level)
         assert gpu.decompress_batch(ours, [65536] * len(blocks)) == blocks
     assert encode_hc.launches == n + 2 and gpu.hc_encoded == 2
+
+
+def _b4_case_blocks(seed):
+    """The lockstep cases of tests/test_torch_encode_wave_lockstep.py:
+    text, a 4-value byte pool, zeros, random bytes, short rows, lengths of
+    every residue mod 4, and runs longer than 16 KB."""
+    rng = np.random.default_rng(seed)
+    return [gen_text(16381, seed=seed),
+            bytes(rng.integers(0, 4, 16382, dtype=np.uint8)),
+            b"\x00" * 16383, rng.bytes(8193), gen_buffer(16384, 0.8, seed=1),
+            b"Q", b"", b"abc" * 4, b"\x00" * 40000, b"abc" * 13334,
+            gen_text(3000, seed=3) + b"z" * 37001]
+
+
+@pytest.mark.parametrize("hash_bits,max_dist",
+                         [(9, 2048), (10, 2048), (10, 65534), (15, 65534),
+                          (15, 2048)])
+def test_b4_lockstep_cases(cuda, hash_bits, max_dist):
+    blocks = _b4_case_blocks(hash_bits)
+    n_rows = encode_wave.rows_for(max(len(b) for b in blocks))
+    inp, lens = (torch.from_numpy(a)
+                 for a in encode_wave.pack_input(blocks, n_rows))
+    kw = dict(max_dist=max_dist, hash_bits=hash_bits)
+    gpu = encode_wave.find_matches(inp.to(cuda), lens.to(cuda), **kw).cpu()
+    assert torch.equal(gpu, encode_wave.find_matches_plain(inp, lens, **kw))
+    wr = encode_wave.history_rows(max_dist, n_rows)
+    rng = np.random.default_rng(hash_bits)
+    text = np.frombuffer(gen_text(70000, seed=5), np.uint8)
+    hist = np.tile(text[-wr * 4:], (len(blocks), 1))
+    hist[1] = rng.integers(0, 4, wr * 4, dtype=np.uint8)
+    hlen = rng.integers(0, wr * 4 + 1, len(blocks), dtype=np.int32)
+    hlen[:2] = wr * 4
+    hist, hlen = torch.from_numpy(hist), torch.from_numpy(hlen)
+    gpu = encode_wave.find_matches(inp.to(cuda), lens.to(cuda),
+                                   hist.to(cuda), hlen.to(cuda), **kw).cpu()
+    assert torch.equal(gpu, encode_wave.find_matches_plain(
+        inp, lens, hist, hlen, **kw)), "linked"
+
+
+def test_backend_level2_on_card(cuda):
+    """Level 2 on the sort/scan encoder: the card's bytes equal the CPU's
+    (no-dict, dict, a block over 64 KB), with no kernel launch."""
+    data = gen_text(300000, seed=17) + gen_buffer(200000, 0.7, seed=18)
+    blocks = [data[i: i + 65536] for i in range(0, len(data), 65536)]
+    gpu, cpu = TorchBackend(cuda), TorchBackend("cpu")
+    before = (encode_cuda.launches, encode_hc.launches)
+    for kw in ({}, {"dict_prefixes": [data[:70000]] * len(blocks)}):
+        ours = gpu.compress_batch(blocks, level=2, **kw)
+        assert ours == cpu.compress_batch(blocks, level=2, **kw)
+        assert HostBackend().decompress_batch(
+            ours, [65536] * len(blocks), **kw) == blocks
+    big = gpu.compress_batch([data[:200000], data[200000:]], level=2)
+    assert big == cpu.compress_batch([data[:200000], data[200000:]], level=2)
+    assert (encode_cuda.launches, encode_hc.launches) == before
+    assert gpu.device_hc_encoded == 3

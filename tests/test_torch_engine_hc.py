@@ -1,8 +1,10 @@
 """`TorchBackend(device="cpu")`'s HC routes and size gates against the JAX
 package's `TpuBackend` (LZ4_TPU_PALLAS_CPU=1: its Pallas kernels in
 interpret mode) and host tier. Levels 3-9 of no-dict batches of 4-64 KB
-blocks run B5 (its plain version here); everything else goes to the
-host C tier, as in `TpuBackend`. Tolerance: exact.
+blocks run B5 (its plain version here); level 2 runs the sort/scan
+encoder (the JAX package's `encode_jax` graphs in `TpuBackend`);
+everything else goes to the host C tier, as in `TpuBackend`. Tolerance:
+exact.
 """
 import numpy as np
 import pytest
@@ -60,13 +62,57 @@ def test_hc_host_routes(backends, case):
         blocks = [gen_text(3000, seed=6), gen_buffer(4095, 0.7, seed=7)]
     ours = port.compress_batch(blocks, **kw)
     assert port.hc_encoded == 0
-    assert ours == HostBackend().compress_batch(blocks, **kw)
-    assert ours == JaxHost().compress_batch(blocks, **kw)
-    if kw["level"] != 2:          # TpuBackend runs level 2 on its graphs
-        assert ours == tpu.compress_batch(blocks, **kw)
+    assert ours == tpu.compress_batch(blocks, **kw)
+    if kw["level"] == 2:    # both packages run level 2 on sort/scan graphs
+        assert port.device_hc_encoded == 1
+    else:
+        assert port.device_hc_encoded == 0
+        assert ours == HostBackend().compress_batch(blocks, **kw)
+        assert ours == JaxHost().compress_batch(blocks, **kw)
     mx = [len(b) for b in blocks]
     prefixes = kw.get("dict_prefixes")
     assert port.decompress_batch(ours, mx, dict_prefixes=prefixes) == blocks
+
+
+@pytest.fixture(scope="module")
+def tpu_level2():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LZ4_TPU_PALLAS_CPU", "1")
+        yield TpuBackend()
+
+
+@pytest.mark.parametrize("case", ["nodict", "dict", "over64k", "favor",
+                                  "under4k"])
+def test_level2_route_matches_tpu_backend(tpu_level2, case):
+    """Level 2 on the sort/scan encoder: no-dict and dict batches, a
+    block over 64 KB (linked segments, then the seam merge) and
+    favor_dec_speed (ignored at level 2) give TpuBackend's bytes; a batch
+    of blocks under min_device_size goes to the host in both."""
+    port = TorchBackend("cpu")
+    blocks = [gen_text(20000, seed=11), gen_buffer(9000, 0.7, seed=12),
+              b"\x00" * 5000, gen_text(700, seed=13)]
+    kw = {"level": 2}
+    if case == "dict":
+        kw["dict_prefixes"] = [gen_text(70000, seed=14), None,
+                               gen_text(3000, seed=15), b"x" * 10]
+    elif case == "over64k":
+        blocks = [gen_text(150000, seed=16), gen_buffer(70000, 0.8,
+                                                        seed=17)]
+    elif case == "favor":
+        kw["favor_dec_speed"] = True
+    elif case == "under4k":
+        blocks = [gen_text(3000, seed=18), gen_buffer(4000, 0.7, seed=19)]
+    ours = port.compress_batch(blocks, **kw)
+    assert ours == tpu_level2.compress_batch(blocks, **kw)
+    assert port.device_hc_encoded == (case != "under4k")
+    assert port.hc_encoded == 0
+    if case == "under4k":
+        assert ours == HostBackend().compress_batch(blocks, **kw)
+    else:
+        assert ours != HostBackend().compress_batch(blocks, **kw)
+    prefixes = kw.get("dict_prefixes")
+    assert port.decompress_batch(ours, [len(b) for b in blocks],
+                                 dict_prefixes=prefixes) == blocks
 
 
 def test_small_block_fast_tier_matches_tpu_backend(backends):

@@ -20,7 +20,7 @@ from lz4_tpu_torch.block.encode_hc import encode_blocks_hc
 from lz4_tpu_torch.block.encode_wave import find_matches_batch
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
-from lz4_tpu_torch.probes import b1_split, b5_split
+from lz4_tpu_torch.probes import b1_split, b4_split, b5_split, level2_route
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.xxh32_device import xxh32_blocks
 
@@ -100,7 +100,9 @@ def test_native_is_checked_for_imports():
     assert "lz4_tpu_torch.native" in _modules()
     assert PKG / "native" / "__init__.py" in _port_files()
     for m in ("cli", "bench", "bench_harness", "xxh32_device", "io.engine",
-              "frame.file", "block.encode_hc", "probes.b1_split"):
+              "frame.file", "block.encode_hc", "probes.b1_split",
+              "block.encode_sortscan", "probes.b4_split",
+              "probes.level2_route"):
         assert f"lz4_tpu_torch.{m}" in _modules()
 
 
@@ -159,4 +161,16 @@ def test_b5_probe_needs_a_gpu(monkeypatch, capsys):
     assert "lz4_tpu_torch.probes.b5_split" in _modules()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert b5_split.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_b4_probe_needs_a_gpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert b4_split.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_level2_probe_needs_a_gpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert level2_route.main([]) != 0
     assert capsys.readouterr().out == ""
