@@ -146,6 +146,69 @@ def b4_resources() -> dict:
             "threads": int(lib.lz4t_encode_wave_threads())}
 
 
+def ptxas_entries(name: str) -> list[dict]:
+    """Per kernel entry of a built source (nvcc's report, in order):
+    registers, spill stores and static shared memory."""
+    out, cur = [], None
+    for line in _build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def kernel_resources(name: str, kinds: dict) -> dict:
+    """Per kernel entry of source `name`, named by the first key of
+    `kinds` whose pattern its mangled name holds: registers, spill
+    stores and static shared memory (nvcc's report), with the dynamic
+    shared memory and threads that `kinds` gives for it."""
+    res = {}
+    for e in ptxas_entries(name):
+        for kind, (pattern, dyn_smem, threads) in kinds.items():
+            if pattern in e["entry"]:
+                res[kind] = {"registers": e.get("registers"),
+                             "spill_stores": e.get("spill_stores"),
+                             "static_smem": e.get("static_smem"),
+                             "dynamic_smem": dyn_smem, "threads": threads}
+                break
+    return res
+
+
+def b2_resources(per_call: int) -> dict:
+    """B2's kernel at every row width (the launcher's dynamic shared
+    memory and threads), with the launches that one wrapper call made."""
+    lib = ctypes.CDLL(_build.library_path("decode_serial"))
+    return {"kernels": kernel_resources("decode_serial", {
+        "decode": ("decode_serial_kernel", lib.lz4t_decode_serial_smem(),
+                   lib.lz4t_decode_serial_threads())}),
+        "launches_per_call": per_call}
+
+
+def b3_resources(per_call: int) -> dict:
+    """B3's two instantiations: up to 64 pieces (tile and sources in
+    shared memory), more (output and sources in global memory), with the
+    launches that one wrapper call made."""
+    lib = ctypes.CDLL(_build.library_path("decode_wave"))
+    return {"kernels": kernel_resources("decode_wave", {
+        "tile (<= 64 pieces)": ("ILb1E", lib.lz4t_decode_wave_smem(64),
+                                lib.lz4t_decode_wave_threads(64)),
+        "global (> 64 pieces)": ("ILb0E", lib.lz4t_decode_wave_smem(128),
+                                 lib.lz4t_decode_wave_threads(128))}),
+        "launches_per_call": per_call}
+
+
 def reset_launches():
     for mod in KERNELS.values():
         mod.launches = 0
@@ -410,6 +473,15 @@ def phase_kernels_vs_plain():
         raise AssertionError("B2 loose piece failed")
     dec_err = max(dec_err, e)
     log("B2 == plain: valid, dict, mutated and loose streams")
+    # the same cases in rows wider than 64 KB (the 4 MB route's widths)
+    for ss, pre, loose in ((streams[1], None, False), (dstreams, prefixes,
+                                                       False),
+                           (bad, None, False), ([piece] + bad[:8], None,
+                                                True)):
+        e, _ = decode_case(ss, pre, cap_out=70000, loose=loose)
+        dec_err = max(dec_err, e)
+    log("B2 == plain with cap_out 70000: valid, dict, mutated and loose "
+        "streams")
 
     # B3 on the splitter's arenas: B1 streams, host C HC streams (long
     # matches, far offsets), 1-piece streams, NP 4/16/64, a 64 KB history
@@ -446,6 +518,30 @@ def phase_kernels_vs_plain():
     w_err = max(w_err, e)
     log("B3 == plain: B1, HC and 1-piece streams, NP 4/16/64, "
         "64 KB history")
+    # 128 pieces: the output in global memory, the sources in scratch
+    big = [gen_text(2 * BLOCK, seed=17), b"0123456789abcdef" * 8192,
+           rng.bytes(5000) * 26, gen_buffer(100000, 0.8, seed=18)]
+    ss = [bc.compress(x) for x in big] + [bc.compress_hc(big[0], 9)]
+    e, out = wave_decode_case(ss, 128)
+    if out != big + big[:1]:
+        raise AssertionError("B3 failed at NP 128")
+    w_err = max(w_err, e)
+    # garbage in rows 0 and 2 stays inside them: rows 1 and 3 stay exact
+    for NP in (64, 128):
+        arenas, out_lens = wave_arenas(
+            [bc.compress(x[: NP * 1024]) for x in big], NP)
+        for i in (0, 2):
+            for _ in range(60):
+                arenas[i, rng.integers(0, NP), rng.integers(0, 1088)] = \
+                    rng.integers(0, 256)
+        a, n = torch.from_numpy(arenas), torch.from_numpy(out_lens)
+        gpu = decode_wave.wave_decode(a.cuda(), n.cuda())
+        torch.cuda.synchronize()
+        plain = decode_wave.wave_decode_plain(a, n)
+        w_err = max(w_err, compare_wave_decode(gpu[1::2], plain[1::2],
+                                               out_lens[1::2]))
+    log("B3 == plain: NP 128 (output in global memory); garbage arenas at "
+        "NP 64 and 128 leave the other rows exact")
 
     # B4 decisions: tiny, all-zero and random blocks, a 4-value byte pool
     # (equal hashes in one warp step), lengths of every residue mod 4,
@@ -555,9 +651,12 @@ def phase_main_path(be):
         comp, cap=max(len(c) for c in comp)), device="cuda")
     k_dec = cuda_ms(lambda: decode_cuda.decode_blocks(comp_t, clens_t,
                                                       cap_out=BLOCK))
-    gpu_dec = decode_cuda.decode_blocks(comp_t, clens_t, cap_out=BLOCK)
     k_wave = cuda_ms(lambda: decode_wave.wave_decode(a_d, n_d))
+    # one call of each decoder's wrapper, counted: its launches per call
+    reset_launches()
+    gpu_dec = decode_cuda.decode_blocks(comp_t, clens_t, cap_out=BLOCK)
     gpu_wave = decode_wave.wave_decode(a_d, n_d)
+    per_call = read_launches()
     log(f"kernel B1 {k_enc:.3f} ms ({mb / k_enc * 1e3:.1f} MB/s), "
         f"kernel B2 {k_dec:.3f} ms ({mb / k_dec * 1e3:.1f} MB/s), "
         f"kernel B3 {k_wave:.3f} ms ({mb / k_wave * 1e3:.1f} MB/s) "
@@ -597,8 +696,9 @@ def phase_main_path(be):
     log(f"B3 bound: {arena_read} arena bytes read of {arenas.nbytes} "
         f"allocated, {int(out_lens.sum())} bytes written")
     return {
-        "launches": launches, "b2_launches": b2_launches, "enc_ms": k_enc,
-        "dec_ms": k_dec,
+        "launches": launches, "b2_launches": b2_launches,
+        "b2_per_call": per_call["B2"], "b3_per_call": per_call["B3"],
+        "enc_ms": k_enc, "dec_ms": k_dec,
         "wave_ms": k_wave, "plain_enc_ms": p_enc, "plain_dec_ms": p_dec,
         "plain_wave_ms": p_wave,
         "enc_bound_ms": enc_bytes / HBM_BYTES_PER_S * 1e3,
@@ -709,7 +809,13 @@ def phase_frames(be):
             if back != data or read_launches()["B2"] <= mid["B2"]:
                 raise AssertionError("decode_dest 'device' skipped B2")
             log(f"the same frame with decode_dest 'device' (4 MB blocks on "
-                f"B2, one warp each): decompress {t_b2:.1f} ms (host clock)")
+                f"B2): decompress {t_b2:.1f} ms (host clock)")
+            # one such 4 MB block on B2 against the plain version
+            blk = native.blockcodec.compress(data[: 4 << 20])
+            e, (_, olen, err) = decode_case([blk], cap_out=4 << 20)
+            if e or err.any() or int(olen[0]) != 4 << 20:
+                raise AssertionError("B2 on a 4 MB block differs from plain")
+            log("B2 == plain on a 4 MB block (cap_out 4 MB)")
 
 
 def phase_batch_frames(be):
@@ -1090,14 +1196,16 @@ def main() -> int:
          "path": "main, wave_decode off",
          "max_abs_err": max(dec_err, m["dec_err"]),
          "ms": m["dec_ms"], "plain_ms": m["plain_dec_ms"],
-         "bound_ms": m["dec_bound_ms"], **common},
+         "bound_ms": m["dec_bound_ms"], **b2_resources(m["b2_per_call"]),
+         **common},
         {"name": "B3 decode_wave",
          "source": "lz4_tpu_torch/csrc/decode_wave.cu",
          "replaces": "lz4_tpu/block/decode_wave.py:82",
          "launches": m["launches"]["B3"], "path": "main",
          "max_abs_err": max(wave_err, m["wave_err"]),
          "ms": m["wave_ms"], "plain_ms": m["plain_wave_ms"],
-         "bound_ms": m["wave_bound_ms"], **common},
+         "bound_ms": m["wave_bound_ms"], **b3_resources(m["b3_per_call"]),
+         **common},
         {"name": "B4 encode_wave",
          "source": "lz4_tpu_torch/csrc/encode_wave.cu",
          "replaces": "lz4_tpu/block/encode_wave.py:94",

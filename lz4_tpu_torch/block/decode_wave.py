@@ -154,6 +154,142 @@ def wave_decode_plain(arenas: torch.Tensor, out_lens: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# CPU model of the kernel's order
+# --------------------------------------------------------------------------
+
+class WaveParallelModel:
+    """What one CTA of B3 does with one stream. Phase A: `warps` warps
+    take the pieces w, w+W, ... in a seeded random interleaving, one
+    sequence a step, each writing the piece's literal bytes into the tile
+    and, for every output byte, its source: itself for a literal, and for
+    a byte copied from the history row (whose value it writes), the
+    position it copies for a match byte (base + (i mod offset) when the
+    match overlaps itself). A byte no sequence writes is its own source.
+    Phase B: pointer jumping; each round replaces every source by its
+    source's source, the bytes taken in a random order and updated in
+    place (as the kernel's threads do), until a round changes nothing
+    (`rounds` counts the rounds, the last included; `max_rounds` cuts
+    them short, for tests). Then every byte takes its source's value.
+    Asserts that every write lies inside the stream's output bytes, that
+    every source is a lower position (so the rounds end) and that every
+    byte read at the end is a terminal that phase A wrote (the last
+    check only with `strict`, i.e. on valid arenas)."""
+
+    def __init__(self, warps: int = 16, seed: int = 0, strict: bool = True,
+                 max_rounds: int | None = None):
+        self.W = warps
+        self.rng = np.random.default_rng(seed)
+        self.strict = strict
+        self.max_rounds = max_rounds
+        self.rounds = 0
+
+    def decode(self, row: bytes, n_out: int, hb: bytes | None,
+               n_pieces: int) -> bytearray:
+        cap_out = n_pieces * WOUT
+        n_out = min(max(n_out, 0), cap_out)
+        pieces = -(-n_out // WOUT)
+        T = bytearray(cap_out)
+        written = bytearray(cap_out)
+        S = list(range(cap_out))
+
+        def put(x, o_end, src, v=None):
+            assert 0 <= x < o_end <= n_out, f"write at {x} outside the row"
+            assert 0 <= src <= x, f"source {src} of byte {x} not below it"
+            S[x] = src
+            if v is not None:
+                T[x] = v
+                written[x] = 1
+
+        def piece(k):
+            c, c_end = k * WCAP, (k + 1) * WCAP
+            o, o_end = k * WOUT, min((k + 1) * WOUT, n_out)
+
+            def rd(q):
+                return row[q] if q < c_end else 0
+
+            while o < o_end and c < c_end:
+                tok = rd(c)
+                c += 1
+                lit, mn = tok >> 4, tok & 15
+                if lit == 15:
+                    lit += rd(c)
+                    c += 1
+                for i in range(min(lit, o_end - o)):
+                    put(o + i, o_end, o + i, rd(c + i))
+                c += lit
+                o += lit
+                mlen = 0
+                if mn:
+                    off = rd(c) | (rd(c + 1) << 8)
+                    c += 2
+                    mlen = mn
+                    if mn == 15:
+                        mlen += rd(c)
+                        c += 1
+                    if off > 0:
+                        base = o - off
+                        for i in range(min(mlen, o_end - o)):
+                            x = base + (i % off if off < mlen else i)
+                            if x >= 0:
+                                put(o + i, o_end, x)
+                            else:
+                                put(o + i, o_end, o + i,
+                                    hb[HIST + x] if hb is not None
+                                    and x >= -HIST else 0)
+                o += mlen
+                yield
+
+        def warp(w):
+            for k in range(w, pieces, self.W):
+                yield from piece(k)
+
+        actors = [warp(w) for w in range(self.W)]
+        while actors:
+            a = actors[int(self.rng.integers(len(actors)))]
+            try:
+                next(a)
+            except StopIteration:
+                actors.remove(a)
+        # pointer jumping, in place, the positions in a random order
+        while self.max_rounds is None or self.rounds < self.max_rounds:
+            changed = False
+            for j in self.rng.permutation(n_out).tolist():
+                t = S[S[j]]
+                if t != S[j]:
+                    S[j] = t
+                    changed = True
+            self.rounds += 1
+            if not changed:
+                break
+        out = bytearray(cap_out)
+        for j in range(n_out):
+            s = S[j]
+            assert not self.strict or (S[s] == s and written[s]), \
+                f"byte {j} reads {s}, not a written terminal"
+            out[j] = T[s]
+        return out
+
+
+def wave_decode_model(arenas, out_lens, hist=None, *, warps=16, seed=0,
+                      strict=True, max_rounds=None):
+    """`wave_decode_plain`'s contract computed by `WaveParallelModel`
+    (bytes past out_lens are 0). Returns (out, rounds per stream)."""
+    B, NP, _ = arenas.shape
+    out = torch.zeros((B, NP * WOUT), dtype=torch.uint8)
+    a_np = arenas.cpu().numpy()
+    lens = out_lens.cpu().tolist()
+    h_np = None if hist is None else hist.cpu().numpy()
+    rounds = []
+    for b in range(B):
+        m = WaveParallelModel(warps, seed + b, strict, max_rounds)
+        hb = None if h_np is None else h_np[b].tobytes()
+        out[b] = torch.frombuffer(m.decode(a_np[b].tobytes(), lens[b], hb,
+                                           NP), dtype=torch.uint8)
+        rounds.append(m.rounds)
+    return out, rounds
+
+
+# --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
 

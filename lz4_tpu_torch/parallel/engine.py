@@ -307,9 +307,10 @@ class TorchBackend:
             return HostBackend().decompress_batch(
                 blocks, max_outs, dict_prefixes=dict_prefixes)
         # one output tier covers the batch; reads past the longest stream
-        # read 0, so the input row needs no compress_bound padding
+        # read 0, so the input row needs no compress_bound padding (a whole
+        # number of 4-byte words, so B2 reads the rows a word at a time)
         cap_out = _pad_cap(mo)
-        cap_in = max(1, max(len(b) for b in blocks))
+        cap_in = -(-max(1, max(len(b) for b in blocks)) // 4) * 4
         arrays = pack_blocks(blocks, dict_prefixes, cap=cap_in,
                              with_dict=has_dict)
         out, olens, errs = decode_blocks(

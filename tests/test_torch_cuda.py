@@ -454,3 +454,83 @@ def test_backend_level2_on_card(cuda):
     assert big == cpu.compress_batch([data[:200000], data[200000:]], level=2)
     assert (encode_cuda.launches, encode_hc.launches) == before
     assert gpu.device_hc_encoded == 3
+
+
+@pytest.mark.parametrize("cap_out", [65536, 70000])
+def test_b2_main_and_wide_rows(cuda, cap_out):
+    """B2 holds to the plain version on valid, overlapping, mutated, dict
+    and loose streams, at the main path's width and wider."""
+    rng = np.random.default_rng(300 + cap_out % 7)
+    blocks = _random_blocks(rng, 12, 65536) + [
+        rng.bytes(off) * (3000 // off) for off in range(1, 32, 3)]
+    streams = [blockcodec.compress(b) if i % 2 else
+               blockcodec.compress_hc(b, 9) for i, b in enumerate(blocks)]
+    assert not _decode_both(cuda, streams, cap_out=cap_out).any()
+    bad = []
+    for k in range(60):
+        cc = bytearray(streams[k % len(streams)])
+        if len(cc) > 1 and k % 2:
+            cc = cc[: int(rng.integers(1, len(cc)))]
+        for _ in range(int(rng.integers(1, 4))):
+            cc[int(rng.integers(0, len(cc)))] = int(rng.integers(0, 256))
+        bad.append(bytes(cc))
+    _decode_both(cuda, bad, cap_out=cap_out)
+    _decode_both(cuda, bad, cap_out=cap_out, loose=True)
+    hist = gen_text(70000, seed=cap_out)
+    _decode_both(cuda, streams[:8] + bad[:8],
+                 [hist[-int(rng.integers(0, 70000)):] or None
+                  for _ in range(16)], cap_out=cap_out)
+
+
+def test_b2_many_blocks_and_4mb_rows(cuda):
+    """A batch wider than the card's resident CTAs, and 4 MB rows (the
+    decode_dest "device" route)."""
+    data = gen_text(1 << 20, seed=41) + gen_buffer(1 << 20, 0.8, seed=42)
+    blocks = [data[i: i + 8192] for i in range(0, len(data), 8192)]
+    streams = blockcodec.compress_batch(blocks)
+    arrays = pack_blocks(streams, cap=max(len(s) for s in streams))
+    out, olen, err = decode_cuda.decode_blocks(
+        *to_device_batch(*arrays, device=cuda), cap_out=8192)
+    out = out.cpu()
+    assert not err.any()
+    assert [out[i, : len(b)].numpy().tobytes() for i, b in
+            enumerate(blocks)] == blocks
+    big = [data[: 4 << 20], data[1000: 3 << 20]]
+    comp = blockcodec.compress_batch(big)
+    arrays = pack_blocks(comp, cap=max(len(s) for s in comp))
+    out, olen, err = decode_cuda.decode_blocks(
+        *to_device_batch(*arrays, device=cuda), cap_out=4 << 20)
+    out = out.cpu()
+    assert not err.any()
+    assert [out[i, : len(b)].numpy().tobytes() for i, b in
+            enumerate(big)] == big
+
+
+@pytest.mark.parametrize("NP", [4, 16, 64, 128])
+def test_b3_piece_counts(cuda, NP):
+    """Up to 64 pieces the output tile and the sources are in shared
+    memory, beyond it in global memory: both hold to the plain version,
+    with and without a 64 KB history."""
+    rng = np.random.default_rng(400 + NP)
+    n = NP * 1024
+    srcs = [gen_text(n, seed=NP), gen_buffer(n - 77, 0.8, seed=NP),
+            b"\xaa" * (n - 5), rng.bytes(min(n, 3000)) * (n // 3000 + 1),
+            b"Q", gen_text(700, seed=1)]
+    srcs = [s[:n] for s in srcs]
+    streams = [blockcodec.compress(s) if i % 2 else
+               blockcodec.compress_hc(s, 9) for i, s in enumerate(srcs)]
+    arenas, out_lens = blockcodec.wave_split_batch(
+        streams, max_pieces=NP, out_caps=[n] * len(srcs))
+    gpu = _wave_both(cuda, arenas, out_lens)
+    for i, s in enumerate(srcs):
+        assert gpu[i, : len(s)].numpy().tobytes() == s
+    hist = gen_text(65536, seed=NP + 1)
+    linked = [(hist[-30000:-20000] + gen_text(n, seed=NP + 2))[:n]]
+    arenas = np.zeros((1, NP, 1088), np.uint8)
+    arena, k = blockcodec.wave_split(
+        blockcodec.compress(linked[0], dict_prefix=hist), max_pieces=NP,
+        out_cap=n, hist_len=65536)
+    arenas[0, : arena.shape[0]] = arena
+    gpu = _wave_both(cuda, arenas, np.array([k], np.int32),
+                     np.frombuffer(hist, np.uint8).copy()[None])
+    assert gpu[0, :k].numpy().tobytes() == linked[0]

@@ -20,7 +20,8 @@ from lz4_tpu_torch.block.encode_hc import encode_blocks_hc
 from lz4_tpu_torch.block.encode_wave import find_matches_batch
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
-from lz4_tpu_torch.probes import b1_split, b4_split, b5_split, level2_route
+from lz4_tpu_torch.probes import (b1_split, b4_split, b5_split, decode_split,
+                                  level2_route)
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.xxh32_device import xxh32_blocks
 
@@ -102,7 +103,7 @@ def test_native_is_checked_for_imports():
     for m in ("cli", "bench", "bench_harness", "xxh32_device", "io.engine",
               "frame.file", "block.encode_hc", "probes.b1_split",
               "block.encode_sortscan", "probes.b4_split",
-              "probes.level2_route"):
+              "probes.level2_route", "probes.decode_split"):
         assert f"lz4_tpu_torch.{m}" in _modules()
 
 
@@ -173,4 +174,10 @@ def test_b4_probe_needs_a_gpu(monkeypatch, capsys):
 def test_level2_probe_needs_a_gpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert level2_route.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_decode_probe_needs_a_gpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert decode_split.main([]) != 0
     assert capsys.readouterr().out == ""
