@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from lz4_tpu_torch/csrc with nvcc (all at once)
 and the host C library with cc, holds each kernel (B1-B6) against its
-plain PyTorch version on the card, then drives the port's paths through
-the entry points a user calls, each with every launch count set to 0
-just before it and read just after:
+plain PyTorch version on the card (and B6 against the host C XXH32 on
+rows of 1 MB and 4 MB and on batches of 1, 7 and 768 rows), then drives
+the port's paths through the entry points a user calls, each with every
+launch count set to 0 just before it and read just after:
 
 - the main path: the fast-tier block round trip through `TorchBackend`
   over a 48 MB real-file corpus in 64 KB blocks (B1 to compress; the
@@ -29,7 +30,9 @@ just before it and read just after:
 - the CLI in process: `-9 -B4` (B5), `-d` and `-t` on a 16 MB file, and
   a default `-1` round trip;
 - the port's bench at 8 MB and 1 s per timed loop (its round-trip check
-  runs B6).
+  runs B6; B6 is also timed on the HC path's 48 MB batch: a launch after
+  a sync, as every kernel's `ms`, and beside it launches back to back and
+  one with the L2 flushed).
 
 Any failure raises. The last line is {"ok": true, "device": {...}}; the
 line before it is the card's name and power limit, and before that a
@@ -62,9 +65,12 @@ from lz4_tpu_torch.frame.format import FrameInfo, Preferences
 from lz4_tpu_torch.frame.reader import decompress_frame
 from lz4_tpu_torch.frame.writer import compress_frame
 from lz4_tpu_torch.parallel.engine import TorchBackend
+from lz4_tpu_torch.probes._timing import (cuda_ms, cuda_ms_back_to_back,
+                                          cuda_ms_flushed)
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
                                          gen_slot_words, gen_text)
 from lz4_tpu_torch.utils.realcorpus import describe, real_corpus
+from lz4_tpu_torch.xxh32 import xxh32_batch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 BLOCK = 65536
@@ -84,21 +90,6 @@ def card_line() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, runs=5):
-    """Best of `runs` timings of fn() with CUDA events, after a warm-up."""
-    fn()
-    best = float("inf")
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        best = min(best, a.elapsed_time(b))
-    return best
 
 
 def host_ms(fn):
@@ -207,6 +198,17 @@ def b3_resources(per_call: int) -> dict:
         "global (> 64 pieces)": ("ILb0E", lib.lz4t_decode_wave_smem(128),
                                  lib.lz4t_decode_wave_threads(128))}),
         "launches_per_call": per_call}
+
+
+def b6_resources(B: int) -> dict:
+    """B6's kernel (nvcc's report; the launcher's threads and dynamic
+    shared memory) and its grid over the main path's B rows."""
+    lib = ctypes.CDLL(_build.library_path("xxh32"))
+    return {"kernels": kernel_resources("xxh32", {
+        "ring": ("xxh32_kernel", lib.lz4t_xxh32_smem(),
+                 lib.lz4t_xxh32_threads())}),
+        "grid": lib.lz4t_xxh32_grid(B),
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count}
 
 
 def reset_launches():
@@ -918,6 +920,52 @@ def phase_hc_xxh_vs_plain():
     return 0, xxh_err
 
 
+def b6_vs_host(data, lens, seed):
+    """B6 on the card against the host C XXH32 of each row; raises on a
+    row that differs."""
+    gpu = xxh32_device.xxh32_blocks(
+        torch.from_numpy(data).cuda(), torch.from_numpy(lens).cuda(), seed,
+        cap=data.shape[1]).cpu().numpy()
+    want = xxh32_batch(data, lens, seed)
+    bad = np.nonzero(gpu.astype(np.uint32) != want)[0].tolist()
+    if bad:
+        raise AssertionError(f"B6 differs from host XXH32 in rows {bad[:8]} "
+                             f"(B {len(lens)}, cap {data.shape[1]}, seed "
+                             f"{seed})")
+
+
+def phase_xxh_host():
+    """B6 against the host C XXH32 on rows of 1 MB and 4 MB (whose chain
+    sets B6's time; the plain version is too slow there) and on B = 1, 7
+    and 768 rows of 64 KB, ragged lengths on and around stage (2 KB) and
+    stripe boundaries; and one 4 MB row's time."""
+    rng = np.random.default_rng(2028)
+    stage = xxh32_device.STAGE_BYTES
+    for cap, lens in ((1 << 20, [1 << 20, (1 << 20) - 1, stage - 1, stage,
+                                 stage + 1, 17, 0]),
+                      (4 << 20, [4 << 20, (4 << 20) - 15,
+                                 (4 << 20) - stage + 1]),
+                      (4 << 20, [4 << 20])):
+        data = rng.integers(0, 256, (len(lens), cap), dtype=np.uint8)
+        for seed in (0, 0xDEADBEEF):
+            b6_vs_host(data, np.array(lens, np.int32), seed)
+    for B in (1, 7, 768):
+        lens = rng.integers(0, BLOCK + 1, B).astype(np.int32)
+        lens[: min(B, 5)] = [BLOCK, 15, 16, 17, stage][: min(B, 5)]
+        data = rng.integers(0, 256, (B, BLOCK), dtype=np.uint8)
+        for seed in (0, 1, 0xFFFFFFFF):
+            b6_vs_host(data, lens, seed)
+    big = torch.from_numpy(rng.integers(0, 256, (1, 4 << 20),
+                                        dtype=np.uint8)).cuda()
+    lens4 = torch.tensor([4 << 20], dtype=torch.int32, device="cuda")
+    ms4 = cuda_ms(lambda: xxh32_device.xxh32_blocks(big, lens4, cap=4 << 20),
+                  runs=3)
+    log(f"B6 == host C XXH32: rows of 1 MB (B 7) and 4 MB (B 3 and 1), and "
+        f"B 1, 7, 768 of 64 KB, ragged, seeds 0/1/0xDEADBEEF/0xFFFFFFFF; one "
+        f"4 MB row {ms4:.4f} ms ({(4 << 20) // 16} rounds a lane)")
+    return ms4
+
+
 def phase_hc_path(be):
     """compress_batch(level=3 and 9) over the 48 MB corpus: one B5 launch
     each, byte-identical to the host C compress_hc, round-tripped."""
@@ -982,8 +1030,12 @@ def phase_hc_path(be):
 
     # B6 on the same device-resident batch (the bench's check, full size)
     lens_full = torch.full((B,), BLOCK, dtype=torch.int32, device="cuda")
-    x_ms = cuda_ms(lambda: xxh32_device.xxh32_blocks(src_d, lens_full,
-                                                     cap=BLOCK), runs=10)
+    def x_run():
+        return xxh32_device.xxh32_blocks(src_d, lens_full, cap=BLOCK)
+
+    x_ms = cuda_ms(x_run, runs=10)
+    x_b2b = cuda_ms_back_to_back(x_run)
+    x_cold = cuda_ms_flushed(x_run)
     got = xxh32_device.xxh32_blocks(src_d, lens_full, cap=BLOCK).cpu()
     want = torch.tensor([native.xxh.xxh32(b) for b in blocks])
     if not torch.equal(got, want):
@@ -994,12 +1046,17 @@ def phase_hc_path(be):
     err = int((got[r8] - plain).abs().max())
     if err:
         raise AssertionError("B6 differs from plain on main-path rows")
-    log(f"kernel B6: {x_ms:.4f} ms on {B} blocks of {BLOCK} "
-        f"({mb / x_ms * 1e3:.1f} MB/s), == host XXH32 on every block, == "
-        f"plain on {PLAIN_ROWS} rows; plain {p_ms:.1f} ms on {PLAIN_ROWS} "
-        "rows")
-    res["xxh"] = {"ms": x_ms, "plain_ms": p_ms, "err": err,
-                  "bound_ms": (len(data) + B * 12) / HBM_BYTES_PER_S * 1e3}
+    b6 = b6_resources(B)
+    log(f"kernel B6: {x_ms:.4f} ms a launch after a sync, {x_b2b:.4f} ms "
+        f"back to back (mean of 20), {x_cold:.4f} ms with the L2 flushed, "
+        f"on {B} blocks of {BLOCK} ({mb / x_ms * 1e3:.1f} MB/s), grid "
+        f"{b6['grid']} CTAs on {b6['sms']} SMs; == host XXH32 on every "
+        f"block, == plain on {PLAIN_ROWS} rows; plain {p_ms:.1f} ms on "
+        f"{PLAIN_ROWS} rows")
+    res["xxh"] = {"ms": x_ms, "ms_back_to_back": x_b2b,
+                  "ms_l2_flushed": x_cold, "plain_ms": p_ms, "err": err,
+                  "bound_ms": (len(data) + B * 12) / HBM_BYTES_PER_S * 1e3,
+                  **b6}
     return res
 
 
@@ -1169,6 +1226,7 @@ def main() -> int:
 
     enc_err, dec_err, wave_err, match_err = phase_kernels_vs_plain()
     hc_err, xxh_err = phase_hc_xxh_vs_plain()
+    xxh_4mb_ms = phase_xxh_host()
     be = TorchBackend()
     m = phase_main_path(be)
     md = phase_max_dist(be)
@@ -1229,8 +1287,8 @@ def main() -> int:
          "replaces": "lz4_tpu/xxh32_device.py:90",
          "launches": bench_launches["B6"], "path": "bench",
          "max_abs_err": max(xxh_err, hc["xxh"]["err"]),
-         "ms": hc["xxh"]["ms"], "plain_ms": hc["xxh"]["plain_ms"],
-         "bound_ms": hc["xxh"]["bound_ms"], **common},
+         **{k: v for k, v in hc["xxh"].items() if k != "err"},
+         "ms_4mb_row": xxh_4mb_ms, **common},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -6,8 +6,9 @@ the LZ4 frame header-checksum byte, optional block checksums and the
 content checksum. Two forms: a one-shot function and a streaming
 accumulator, both on the host C tier (`lz4_tpu_torch.native`, which
 raises when it cannot be built). `xxh32_plain` is the same function in
-Python, kept as the plain version the tests hold the C one against. The
-batched device XXH32 is `lz4_tpu_torch.xxh32_device` (kernel B6).
+Python, kept as the plain version the tests hold the C one against.
+`xxh32_batch` hashes the rows of a batch on the host; the batched device
+XXH32 is `lz4_tpu_torch.xxh32_device` (kernel B6).
 """
 from __future__ import annotations
 
@@ -91,6 +92,17 @@ def xxh32_plain(data, seed: int = 0) -> int:
         h = (seed + _P5) & _M32
     h = (h + n) & _M32
     return _tail(h, data[(n // 16) * 16:])
+
+
+def xxh32_batch(blocks: np.ndarray, lengths, seed: int = 0) -> np.ndarray:
+    """XXH32 of many equal-capacity blocks (uint8[B, cap]) with per-block
+    lengths, as uint32[B], one C call per block (the host counterpart of
+    the device hash `xxh32_device.xxh32_blocks`)."""
+    from lz4_tpu_torch.native import xxh
+    out = np.empty(blocks.shape[0], dtype=np.uint32)
+    for i in range(blocks.shape[0]):
+        out[i] = xxh.xxh32(blocks[i, : int(lengths[i])].tobytes(), seed)
+    return out
 
 
 class XXH32State:

@@ -20,6 +20,7 @@ from lz4_tpu_torch.native import blockcodec, xxh
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
                                          gen_slot_words, gen_text)
+from lz4_tpu_torch.xxh32 import xxh32_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -387,6 +388,41 @@ def test_b6_random_rows(cuda, seed):
         plain = xxh32_device.xxh32_blocks_plain(d, n, seed, cap=cap)
         assert torch.equal(gpu, plain), cap
         assert gpu.tolist() == [xxh.xxh32(r, seed) for r in rows]
+
+
+def _b6_vs_host(cuda, data, lens, seed):
+    gpu = xxh32_device.xxh32_blocks(torch.from_numpy(data).to(cuda),
+                                    torch.from_numpy(lens).to(cuda), seed,
+                                    cap=data.shape[1])
+    torch.cuda.synchronize()
+    assert gpu.cpu().numpy().astype(np.uint32).tolist() == \
+        xxh32_batch(data, lens, seed).tolist()
+
+
+@pytest.mark.parametrize("cap", [1 << 20, 4 << 20])
+def test_b6_long_rows_match_host(cuda, cap):
+    """Rows whose chain, not their bytes, sets B6's time; lengths on and
+    around a stage (2 KB) and a stripe boundary."""
+    rng = np.random.default_rng(cap)
+    S = xxh32_device.STAGE_BYTES
+    lens = np.array([cap, cap - 1, cap - 16, cap - S + 17, S - 1, S, S + 1,
+                     S * 4 + 15], np.int32)
+    data = rng.integers(0, 256, (len(lens), cap), dtype=np.uint8)
+    _b6_vs_host(cuda, data, lens, 0xDEADBEEF)
+    _b6_vs_host(cuda, data[:1], lens[:1], 0)
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 768, 1100])
+def test_b6_batch_sizes_match_host(cuda, B):
+    """B below, at and above a warp's 8 rows and the SM count; ragged
+    lengths 0..cap."""
+    rng = np.random.default_rng(B)
+    cap = 8192
+    lens = rng.integers(0, cap + 1, B).astype(np.int32)
+    lens[: min(B, 6)] = [0, 15, 16, 17, cap, 2048][: min(B, 6)]
+    data = rng.integers(0, 256, (B, cap), dtype=np.uint8)
+    for seed in (0, 1, 0xFFFFFFFF):
+        _b6_vs_host(cuda, data, lens, seed)
 
 
 def test_backend_hc_route_on_card(cuda):
