@@ -56,14 +56,16 @@ import numpy as np
 import torch
 
 from lz4_tpu_torch import _build, bench, cli, native, xxh32_device
-from lz4_tpu_torch.block import (decode_cuda, decode_wave, encode_cuda,
-                                 encode_hc, encode_sortscan, encode_wave)
-from lz4_tpu_torch.block.backend import HostBackend
-from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
+from lz4_tpu_torch.block import (decode_cuda, decode_sortscan, decode_wave,
+                                 encode_cuda, encode_hc, encode_sortscan,
+                                 encode_wave)
+from lz4_tpu_torch.block.backend import HostBackend, default_nb_workers
+from lz4_tpu_torch.block.batch import DICT_CAP, pack_blocks, to_device_batch
 from lz4_tpu_torch.frame import batch as frame_batch
 from lz4_tpu_torch.frame.format import FrameInfo, Preferences
 from lz4_tpu_torch.frame.reader import decompress_frame
 from lz4_tpu_torch.frame.writer import compress_frame
+from lz4_tpu_torch.parallel import engine as eng
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.probes._timing import (cuda_ms, cuda_ms_back_to_back,
                                           cuda_ms_flushed)
@@ -804,15 +806,33 @@ def phase_frames(be):
             f"checksums in C; decode on "
             f"{'B3' if independent else 'the host, B2 launches 0'})")
         if not independent:
+            # decode_dest "device": each 4 MB block as linked pieces, B2
+            # a wave (the reader hands the blocks over one at a time)
+            calls = []
+            big = be._decompress_big_batch
+            be._decompress_big_batch = lambda b, m, d: (
+                calls.append((b, m)), big(b, m, d))[1]
             be.decode_dest = "device"
             mid = read_launches()
-            t_b2, back = host_ms(lambda: decompress_frame(frame, backend=be))
-            be.decode_dest = "auto"
-            if back != data or read_launches()["B2"] <= mid["B2"]:
-                raise AssertionError("decode_dest 'device' skipped B2")
-            log(f"the same frame with decode_dest 'device' (4 MB blocks on "
-                f"B2): decompress {t_b2:.1f} ms (host clock)")
-            # one such 4 MB block on B2 against the plain version
+            try:
+                t_p, back = host_ms(lambda: decompress_frame(frame,
+                                                             backend=be))
+            finally:
+                be.decode_dest = "auto"
+                del be._decompress_big_batch
+            launched = read_launches()["B2"] - mid["B2"]
+            waves = sum(max(len(native.blockcodec.split_stream(
+                c, out_cap=n)[1]) for c, n in zip(bs, ms))
+                for bs, ms in calls)
+            if back != data or not calls or launched != waves:
+                raise AssertionError(
+                    f"decode_dest 'device' skipped the piece route: "
+                    f"{len(calls)} calls, B2 launches {launched}, waves "
+                    f"{waves}")
+            log(f"the same frame with decode_dest 'device' (piece route, "
+                f"{len(calls)} calls, {waves} waves = B2 launches "
+                f"{launched}): decompress {t_p:.1f} ms (host clock)")
+            # one 4 MB block on B2 (whole row) against the plain version
             blk = native.blockcodec.compress(data[: 4 << 20])
             e, (_, olen, err) = decode_case([blk], cap_out=4 << 20)
             if e or err.any() or int(olen[0]) != 4 << 20:
@@ -1154,6 +1174,295 @@ def phase_level2(be):
         raise AssertionError("a level 2 chunk exceeds its memory budget")
 
 
+def phase_host_pool():
+    """HostBackend(nb_workers=1) against default_nb_workers() workers:
+    level 12 (the host-only HC tier) on a sample of the corpus, and the
+    16 MB independent 4 MB-block frame's decode; bytes equal."""
+    data = real_corpus(CORPUS)
+    n = default_nb_workers()
+    one, many = HostBackend(nb_workers=1), HostBackend(nb_workers=n)
+    sample = [data[i: i + BLOCK] for i in range(0, 48 * BLOCK, BLOCK)]
+    t1, c1 = host_ms(lambda: one.compress_batch(sample, level=12))
+    tn, cn = host_ms(lambda: many.compress_batch(sample, level=12))
+    if c1 != cn or many.decompress_batch(cn, [BLOCK] * len(sample)) \
+            != sample:
+        raise AssertionError("level 12 bytes depend on the worker count")
+    frame = compress_frame(data[: 16 << 20], prefs=Preferences(
+        frame_info=FrameInfo(block_size_id=7)), backend=many)
+    d1, b1 = host_ms(lambda: decompress_frame(frame, backend=one))
+    dn, bn = host_ms(lambda: decompress_frame(frame, backend=many))
+    if not b1 == bn == data[: 16 << 20]:
+        raise AssertionError("4 MB-block decode depends on the worker count")
+    log(f"host pool ({os.cpu_count()} cores, default_nb_workers {n}): "
+        f"level 12 on {len(sample)} x 64 KB {t1:.1f} ms with 1 worker, "
+        f"{tn:.1f} ms with {n}; 16 MB -B7 frame decode {d1:.1f} ms with 1, "
+        f"{dn:.1f} ms with {n} (host clock); bytes equal")
+    return {"workers": n, "l12_1": t1, "l12_n": tn, "dec_1": d1,
+            "dec_n": dn}
+
+
+def phase_big_blocks(be):
+    """The same four linked 4 MB blocks (each with the 64 KB before it
+    as history) through the piece route (B2 a wave), B2 on whole 4 MB
+    rows, and the host tier with 1 and N workers."""
+    data = real_corpus(CORPUS)[: 16 << 20]
+    MB4 = 4 << 20
+    prefixes = [None] + [data[i - DICT_CAP: i] for i in range(MB4, 16 << 20,
+                                                                MB4)]
+    blocks = [native.blockcodec.compress(data[i: i + MB4], dict_prefix=d)
+              for i, d in zip(range(0, 16 << 20, MB4), prefixes)]
+    caps = [MB4] * 4
+    want = [data[i: i + MB4] for i in range(0, 16 << 20, MB4)]
+    splits = [native.blockcodec.split_stream(c, out_cap=MB4) for c in blocks]
+    waves = max(len(s[1]) for s in splits)
+    reset_launches()
+    t_piece, got = host_ms(lambda: be._decompress_big_batch(blocks, caps,
+                                                            prefixes))
+    launches = read_launches()
+    if got != want or launches["B2"] != waves:
+        raise AssertionError(f"piece route: B2 launches {launches['B2']}, "
+                             f"waves {waves}, bytes equal {got == want}")
+    e2e_piece = cuda_ms(lambda: be._decompress_big_batch(blocks, caps,
+                                                         prefixes), runs=3)
+    # the waves alone, on device-resident pieces
+    B = len(blocks)
+    arenas, plens = eng.pack_pieces(splits)
+    src0, lens0, hist, hlen = pack_blocks([b""] * B, prefixes, cap=0,
+                                          with_dict=True)
+    _, _, hist_d, hlen_d = to_device_batch(src0, lens0, hist, hlen,
+                                           device="cuda")
+    comp_d, plens_d, _, _ = to_device_batch(
+        arenas.reshape(waves * B, eng.PIECE_CAP), plens.reshape(-1),
+        device="cuda")
+    k_piece = cuda_ms(lambda: eng._decode_pieces(comp_d, plens_d, hist_d,
+                                                 hlen_d, waves=waves))
+    # the wave-major arenas' one H2D against the tight pack of lz4_tpu
+    # engine.py:716-722 (each block's pieces back to back, one H2D, then
+    # each wave's pieces cut out per row on the device)
+    poffs = np.zeros((waves, B), np.int64)
+    for i, (_, pl, _) in enumerate(splits):
+        poffs[1: len(pl), i] = np.cumsum(pl[:-1])
+    packed = np.zeros((B, int(plens.sum(0).max()) + eng.PIECE_CAP),
+                      np.uint8)
+    for i, (arena, pl, _) in enumerate(splits):
+        packed[i, : int(pl.sum())] = np.concatenate(
+            [arena[k, : pl[k]] for k in range(len(pl))])
+    ar = torch.arange(eng.PIECE_CAP, device="cuda")
+
+    def tight_cut():
+        p = torch.from_numpy(packed).cuda()
+        o = torch.from_numpy(poffs).cuda()
+        return [p.gather(1, o[k][:, None] + ar) for k in range(waves)]
+    # B2 reads a piece up to its length: the cuts must agree there
+    live = torch.arange(eng.PIECE_CAP) < torch.from_numpy(plens)[..., None]
+    if not torch.equal(torch.stack(tight_cut()).cpu()[live],
+                       torch.from_numpy(arenas)[live]):
+        raise AssertionError("the tight pack's cut differs from the arenas")
+    h2d_pad = cuda_ms(lambda: torch.from_numpy(arenas).cuda())
+    h2d_tight = cuda_ms(lambda: torch.from_numpy(packed).cuda())
+    tight_ms = cuda_ms(tight_cut)
+    # B2 on whole 4 MB rows: the kernel, and with its host steps
+    cap_in = -(-max(len(c) for c in blocks) // 4) * 4
+    rows = to_device_batch(*pack_blocks(blocks, prefixes, cap=cap_in,
+                                        with_dict=True), device="cuda")
+    k_rows = cuda_ms(lambda: decode_cuda.decode_blocks(*rows, cap_out=MB4),
+                     runs=3)
+
+    def whole_rows():
+        out, olen, err = decode_cuda.decode_blocks(*to_device_batch(
+            *pack_blocks(blocks, prefixes, cap=cap_in, with_dict=True),
+            device="cuda"), cap_out=MB4)
+        out, olen = out.cpu().numpy(), olen.cpu().tolist()
+        if err.any():
+            raise AssertionError("B2 whole rows flagged an error")
+        return [out[i, : olen[i]].tobytes() for i in range(B)]
+    t_rows, got = host_ms(whole_rows)
+    if got != want:
+        raise AssertionError("B2 on whole 4 MB rows differs")
+    e2e_rows = cuda_ms(whole_rows, runs=3)
+    host = {}
+    for n in (1, default_nb_workers()):
+        hb = HostBackend(nb_workers=n)
+        if hb.decompress_batch(blocks, caps, dict_prefixes=prefixes) != want:
+            raise AssertionError("host decode differs")
+        host[n], _ = min(host_ms(lambda: hb.decompress_batch(
+            blocks, caps, dict_prefixes=prefixes)) for _ in range(3))
+    log(f"4 x 4 MB linked blocks ({sum(map(len, blocks))} bytes): piece "
+        f"route {e2e_piece:.3f} ms ({waves} waves = B2 launches, the waves "
+        f"alone {k_piece:.3f} ms; first call {t_piece:.1f} ms), B2 on "
+        f"whole 4 MB rows {e2e_rows:.3f} ms (the kernel alone "
+        f"{k_rows:.3f} ms), host tier " + ", ".join(
+            f"{v:.3f} ms with {k} worker{'s' if k > 1 else ''}"
+            for k, v in host.items()))
+    log(f"piece arenas: one H2D of the wave-major [{waves}, {B}, "
+        f"{eng.PIECE_CAP}] arenas ({arenas.nbytes} bytes) {h2d_pad:.3f} ms; "
+        f"the tight pack ({packed.nbytes} bytes) {h2d_tight:.3f} ms for its "
+        f"H2D, {tight_ms:.3f} ms with its {waves} per-wave cuts")
+    return {"waves": waves, "launches": launches["B2"], "ms": e2e_piece,
+            "waves_ms": k_piece, "rows_ms": e2e_rows, "rows_kernel_ms": k_rows,
+            "host_ms": host}
+
+
+def phase_sortscan_decode(be):
+    """decode_sortscan.decode_blocks on the 768 x 64 KB main batch and on
+    mutated streams, held to B2 (errs on every row; out and out_lens
+    where err is 0, B2's contract), then TorchBackend with serial_decode
+    and serial_encode off."""
+    data = real_corpus(CORPUS)
+    blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
+    B = len(blocks)
+    comp = native.blockcodec.compress_batch(blocks)
+    bad = mutations(comp[:64], 256, seed=77)
+    worst = 0
+    for name, streams in (("main batch", comp), ("mutated", bad)):
+        cap_in = -(-max(len(c) for c in streams) // 4) * 4
+        arrays = to_device_batch(*pack_blocks(streams, cap=cap_in),
+                                 device="cuda")
+        reset_launches()
+        ss = decode_sortscan.decode_blocks(*arrays[:2], cap_out=BLOCK,
+                                           has_dict=False)
+        if sum(read_launches().values()):
+            raise AssertionError("the sort/scan decoder launched a kernel")
+        b2 = decode_cuda.decode_blocks(*arrays[:2], cap_out=BLOCK)
+        so, sl, se = (t.cpu() for t in ss)
+        bo, bl, be_ = (t.cpu() for t in b2)
+        if not torch.equal(se, be_):
+            raise AssertionError(f"sort/scan errs differ from B2 ({name})")
+        ok = (se == 0).nonzero().flatten().tolist()
+        if not torch.equal(sl[ok], bl[ok]):
+            raise AssertionError(f"sort/scan out_lens differ ({name})")
+        for i in ok:
+            n = int(sl[i])
+            if not torch.equal(so[i, :n], bo[i, :n]):
+                raise AssertionError(f"sort/scan row {i} differs ({name})")
+        if name == "main batch":
+            if se.any() or [so[i, : len(b)].numpy().tobytes()
+                            for i, b in enumerate(blocks)] != blocks:
+                raise AssertionError("sort/scan main batch round trip")
+            ms = cuda_ms(lambda: decode_sortscan.decode_blocks(
+                *arrays[:2], cap_out=BLOCK, has_dict=False), runs=3)
+            R = decode_sortscan.chunk_rows(cap_in, BLOCK,
+                                           arrays[0].device)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            decode_sortscan.decode_blocks(arrays[0][:R], arrays[1][:R],
+                                          cap_out=BLOCK, has_dict=False)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            csum = sum(len(c) for c in comp)
+            main_cap = cap_in
+        log(f"sort/scan decoder == B2 on {len(streams)} rows ({name}, "
+            f"{int(se.sum())} flagged)")
+    budget = decode_sortscan.BUDGET["cuda"]
+    per_pos = peak / (min(R, B) * (main_cap + BLOCK + DICT_CAP) * 8)
+    if peak > budget:
+        raise AssertionError("a sort/scan decode chunk exceeds its budget")
+    bound = (csum + B * 4 + len(data) + B * 8) / HBM_BYTES_PER_S * 1e3
+    # the route through TorchBackend: sort/scan encode (2 candidates) and
+    # decode, the wave tier off
+    be.serial_decode = be.serial_encode = False
+    be.wave_decode = False
+    n0 = be.sortscan_decoded
+    try:
+        reset_launches()
+        t_c, rcomp = host_ms(lambda: be.compress_batch(blocks, level=1))
+        t_d, back = host_ms(lambda: be.decompress_batch(rcomp, [BLOCK] * B))
+        launches = read_launches()
+    finally:
+        be.serial_decode = be.serial_encode = True
+        be.wave_decode = True
+    if back != blocks or sum(launches.values()) or \
+            be.sortscan_decoded != n0 + 1:
+        raise AssertionError(f"serial switches off: launches {launches}, "
+                             f"round trip {back == blocks}")
+    if native.blockcodec.decompress_batch(rcomp, [BLOCK] * B) != blocks:
+        raise AssertionError("sort/scan level 1 streams fail the C decoder")
+    log(f"sort/scan decoder on {B} x 64 KB: {ms:.3f} ms on the card "
+        f"({len(data) / 1e6 / ms * 1e3:.1f} MB/s), bound {bound:.4f} ms "
+        f"(bytes); one chunk of {min(R, B)} rows peaks at "
+        f"{peak / 2**30:.3f} GiB of its {budget / 2**30:.0f} GiB budget "
+        f"({per_pos:.2f} int64 lanes a position, sized by "
+        f"{decode_sortscan._LANES}); TorchBackend with serial_decode and "
+        f"serial_encode off: compress {t_c:.1f} ms, decompress {t_d:.1f} ms "
+        f"(host clock), launches {launches}, ratio "
+        f"{len(data) / sum(map(len, rcomp)):.4f}")
+    return {"ms": ms, "bound_ms": bound, "peak": peak}
+
+
+def phase_sharded():
+    """The multi-GPU engine on a world-size-1 NCCL group (one H100: the
+    collectives run, nothing crosses cards), held to the single-device
+    routes."""
+    import torch.distributed as dist
+    from lz4_tpu_torch.parallel import dryrun
+    with tempfile.TemporaryDirectory() as tdir:
+        store = dist.FileStore(os.path.join(tdir, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            reset_launches()
+            line = dryrun.dryrun_multichip(1, per_rank=8,
+                                           out=os.path.join(tdir, "r.npz"))
+            launches = read_launches()
+            r = dict(np.load(os.path.join(tdir, "r.npz")))
+            src, B = r["src"], r["src"].shape[0]
+            lens = np.full(B, BLOCK, np.int32)
+            # single-device routes on the same inputs
+            dbufs = np.zeros((B, DICT_CAP), np.uint8)
+            dbufs[1:] = src[:-1, -DICT_CAP:]
+            dlens = np.asarray([0] + [DICT_CAP] * (B - 1), np.int32)
+            out, cs, _ = encode_sortscan.encode_blocks(*to_device_batch(
+                src, lens, dbufs, dlens, device="cuda"), cap_n=BLOCK,
+                has_dict=True)
+            if not (np.array_equal(out.cpu().numpy(), r["comp"])
+                    and np.array_equal(cs.cpu().numpy(), r["csizes"])):
+                raise AssertionError("linked_encode_step != one device")
+            eo, es, _ = encode_sortscan.encode_blocks(*to_device_batch(
+                src, lens, device="cuda"), cap_n=BLOCK, has_dict=False)
+            if not np.array_equal(eo.cpu().numpy(), r["eout"]):
+                raise AssertionError("ShardedCodec.encode != one device")
+            cap_in = r["comp"].shape[1]
+            dec = decode_sortscan.decode_blocks(*to_device_batch(
+                r["comp"], r["csizes"], dbufs, dlens, device="cuda"),
+                cap_out=BLOCK, has_dict=True)
+            if not all(np.array_equal(a.cpu().numpy(), r[k]) for a, k in
+                       zip(dec, ("dout", "dlen", "derr"))):
+                raise AssertionError("ShardedCodec.decode != one device")
+            wblocks = [gen_buffer(4096, match_prob=0.7, seed=200 + i)
+                       for i in range(B)]
+            wdec = encode_wave.find_matches(*to_device_batch(
+                *encode_wave.pack_input(wblocks, 1024), device="cuda"),
+                max_dist=2048, hash_bits=9)
+            if not np.array_equal(wdec.cpu().numpy(), r["wdec"]):
+                raise AssertionError("wave_encode_sharded != one device")
+            # TorchBackend(codec=...) on main-path blocks, every device route
+            data = real_corpus(CORPUS)[: 64 * BLOCK]
+            blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
+            sb = TorchBackend(codec=eng.ShardedCodec())
+            single = TorchBackend()
+            sb.wave_decode = single.wave_decode = False
+            for level in (1, 2):
+                c1 = sb.compress_batch(blocks, level=level)
+                if c1 != single.compress_batch(blocks, level=level):
+                    raise AssertionError(f"sharded level {level} differs")
+                for serial in (True, False):
+                    sb.serial_decode = single.serial_decode = serial
+                    if sb.decompress_batch(c1, [BLOCK] * 64) != blocks:
+                        raise AssertionError("sharded decode round trip")
+            after = read_launches()
+        finally:
+            dist.destroy_process_group()
+    for k in ("B1", "B2", "B4"):
+        if after[k] < 1:
+            raise AssertionError(f"the sharded phase skipped {k}: {after}")
+    log(f"sharded engine, world size 1 on NCCL (one H100; no collective "
+        f"crosses cards): {line}; == the single-device routes "
+        f"(linked_encode_step, ShardedCodec.encode/decode, "
+        f"wave_encode_sharded, TorchBackend(codec) levels 1-2 with B2 and "
+        f"sort/scan decode); launches {after} (dryrun alone {launches}), "
+        f"cap_in {cap_in}")
+
+
 def phase_cli():
     """The CLI in process on a 16 MB file: -9 -B4 (B5), -d, -t, and a
     default -1 round trip; the files are compared byte for byte."""
@@ -1231,9 +1540,13 @@ def main() -> int:
     m = phase_main_path(be)
     md = phase_max_dist(be)
     phase_frames(be)
+    big = phase_big_blocks(be)
     phase_batch_frames(be)
     hc = phase_hc_path(be)
     phase_level2(be)
+    phase_sortscan_decode(be)
+    phase_host_pool()
+    phase_sharded()
     phase_cli()
     bench_launches = phase_bench()
 
@@ -1255,6 +1568,8 @@ def main() -> int:
          "max_abs_err": max(dec_err, m["dec_err"]),
          "ms": m["dec_ms"], "plain_ms": m["plain_dec_ms"],
          "bound_ms": m["dec_bound_ms"], **b2_resources(m["b2_per_call"]),
+         "piece_waves": big["waves"], "piece_launches": big["launches"],
+         "piece_ms": big["ms"], "piece_waves_ms": big["waves_ms"],
          **common},
         {"name": "B3 decode_wave",
          "source": "lz4_tpu_torch/csrc/decode_wave.cu",

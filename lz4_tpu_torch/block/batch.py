@@ -35,6 +35,15 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def bucket_cap(n: int) -> int:
+    """The capacity buckets of the JAX package's bytes facades
+    (`encode_blocks_host`, `decode_blocks_host`): 256 doubled up to n."""
+    cap = 256
+    while cap < n:
+        cap *= 2
+    return cap
+
+
 def pack_blocks(blocks: Sequence[bytes],
                 dict_prefixes: Sequence[bytes | None] | None = None, *,
                 cap: int, with_dict: bool = False):

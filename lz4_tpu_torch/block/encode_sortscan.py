@@ -36,7 +36,8 @@ from __future__ import annotations
 
 import torch
 
-from lz4_tpu_torch.block.batch import DICT_CAP, to_device_batch
+from lz4_tpu_torch.block.batch import (DICT_CAP, bucket_cap, pack_blocks,
+                                       to_device_batch)
 from lz4_tpu_torch.constants import (LASTLITERALS, LZ4_DISTANCE_MAX,
                                      MFLIMIT, MINMATCH, compress_bound)
 
@@ -378,3 +379,23 @@ def encode_blocks(src, lens, dict_bufs=None, dict_lens=None, *, cap_n: int,
                 torch.zeros(0, dtype=torch.int32, device=src.device),
                 torch.zeros(0, dtype=torch.int32, device=src.device))
     return torch.cat(outs), torch.cat(sizes), torch.cat(trails)
+
+
+def encode_blocks_host(blocks, dict_prefixes=None, *, n_cand=2, lazy=False,
+                       lite=False, device=None):
+    """Compress a list of raw blocks (bytes, at most 64 KB each) in one
+    batch on `device` (the GPU when None); returns list[bytes], raw LZ4
+    block streams, possibly longer than the input: the caller applies
+    the stored-block fallback (encode_jax.py:585-616)."""
+    if not blocks:
+        return []
+    cap_n = bucket_cap(max(len(b) for b in blocks))
+    has_dict = dict_prefixes is not None and any(d for d in dict_prefixes)
+    src, lens, dict_bufs, dict_lens = to_device_batch(*pack_blocks(
+        blocks, dict_prefixes, cap=cap_n, with_dict=has_dict), device=device)
+    out, csizes, _ = encode_blocks(src, lens, dict_bufs, dict_lens,
+                                   cap_n=cap_n, has_dict=has_dict,
+                                   n_cand=n_cand, lazy=lazy, lite=lite)
+    out = out.cpu().numpy()
+    csizes = csizes.cpu().tolist()
+    return [out[i, : csizes[i]].tobytes() for i in range(len(blocks))]

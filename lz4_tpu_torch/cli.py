@@ -21,6 +21,7 @@ from __future__ import annotations
 import os
 import sys
 
+from lz4_tpu_torch.block.backend import default_nb_workers
 from lz4_tpu_torch.constants import (BLOCK_SIZES, LZ4HC_CLEVEL_MAX,
                                      optimal_block_size_id)
 from lz4_tpu_torch.io.engine import (
@@ -58,8 +59,9 @@ Arguments:
  --sparse / --no-sparse   sparse file support (default on)
  --rm      remove source file after success
  --list    list frame info of .lz4 files (with -m for several)
- -T#       worker hint (accepted for compatibility and ignored; the
-           GPU is the worker pool)
+ -T#       host worker threads (0 = auto: cores - 1 - cores/8; default
+           auto, or LZ4_NBWORKERS); the host C tier's pool under either
+           backend
  --backend cuda|host  block-codec backend (default cuda: the GPU)
  -q        quiet; -v verbose
  -V        display version
@@ -74,18 +76,19 @@ class CliError(SystemExit):
         super().__init__(code)
 
 
-def _select_backend(name: str | None):
+def _select_backend(name: str | None, nb_workers: int = 0):
     """The block backend `--backend` names: `TorchBackend` on the GPU by
-    default (an error where there is none), or `HostBackend`."""
+    default (an error where there is none), or `HostBackend`; either's
+    host tier runs on `nb_workers` threads."""
     if name in (None, "cuda"):
         from lz4_tpu_torch.parallel.engine import TorchBackend
         try:
-            return TorchBackend()
+            return TorchBackend(nb_workers=nb_workers)
         except RuntimeError as e:
             raise CliError(f"{e} (or use --backend host)")
     if name == "host":
         from lz4_tpu_torch.block.backend import HostBackend
-        return HostBackend()
+        return HostBackend(nb_workers=nb_workers)
     raise CliError(f"unknown backend {name!r} (cuda or host)")
 
 
@@ -99,6 +102,12 @@ def main(argv: list[str] | None = None) -> int:
     level_env = os.environ.get("LZ4_CLEVEL")
     if level_env and level_env.isdigit():
         prefs.level = int(level_env)
+    # the reference CLI runs cores - 1 - cores/8 workers by default
+    # (lz4io.c:177-187); LZ4_NBWORKERS and -T# override, -T1 is serial
+    prefs.nb_workers = default_nb_workers()
+    nbw_env = os.environ.get("LZ4_NBWORKERS")
+    if nbw_env and nbw_env.isdigit():
+        prefs.nb_workers = int(nbw_env)
     multiple = False
     recursive = False
     force_stdout = False
@@ -203,7 +212,7 @@ def main(argv: list[str] | None = None) -> int:
                 prefs.level = 1
                 prefs.acceleration = int(opt[5:]) if "=" in opt else 1
             elif opt.startswith("threads="):
-                pass                     # worker hint: the GPU is the pool
+                prefs.nb_workers = int(opt[8:])
             elif opt.startswith("backend="):
                 backend_name = opt[8:]
             elif opt == "backend":
@@ -263,9 +272,13 @@ def main(argv: list[str] | None = None) -> int:
                     i += 1
                 prefs.dictionary_filename = rest
             elif c == "T":
-                # worker hint, accepted and ignored: the GPU is the pool
+                num = ""
                 while j < len(a) and a[j].isdigit():
+                    num += a[j]
                     j += 1
+                # -T0 means auto (the reference's semantics)
+                prefs.nb_workers = (int(num) if num and int(num) > 0
+                                    else default_nb_workers())
             elif c == "b":
                 mode = "bench"
                 num = ""
@@ -340,7 +353,7 @@ def _dispatch(mode, prefs, files, multiple, recursive, force_stdout,
                                  prefs.verbosity >= 3))
         return 0
 
-    backend = _select_backend(backend_name)
+    backend = _select_backend(backend_name, prefs.nb_workers)
 
     if mode == "bench":
         from lz4_tpu_torch.bench_harness import bench_files

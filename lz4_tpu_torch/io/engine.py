@@ -78,6 +78,9 @@ class IoPrefs:
     bench_seconds: float = 3.0     # -i# (bench.c g_nbSeconds analog)
     dictionary_filename: str | None = None
     remove_src_file: bool = False
+    # host worker count of the block backend (-T#, --threads=,
+    # LZ4_NBWORKERS; the CLI defaults it to default_nb_workers())
+    nb_workers: int = 0
     level: int = 1
     acceleration: int = 1
     legacy_format: bool = False

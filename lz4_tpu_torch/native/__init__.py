@@ -11,7 +11,8 @@ library. A failed build raises: there is no Python fallback.
 Two facades keep the method names and return types of the JAX package's
 host tier: `xxh` (one-shot XXH32 and the stripe rounds of the streaming
 form) and `blockcodec` (fast, capped and HC block compression, strict
-decode, and the wave tier's splitter and emitter). The batch calls of
+decode, the wave tier's splitter and emitter, and the big-block stream
+splitter). The batch calls of
 the wave tier split a large batch into contiguous spans of rows, one C
 call per host core at once: ctypes releases the GIL during a call, and
 each row's result does not depend on the others.
@@ -102,6 +103,8 @@ def _configure(lib: ctypes.CDLL) -> None:
                                        _L, _I32P, _I32P]),
         "lz4t_wave_emit_decisions": (_L, [ctypes.POINTER(_CP), _I32P, _L,
                                           _I32P, _L, _P, _L, _I32P]),
+        "lz4t_split_stream": (_L, [_CP, _L, _P, _L, _L, _L, _L, _I32P,
+                                   _I32P]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -319,6 +322,30 @@ class _BlockCodec:
         if any(r != 0 for r in _over_spans(span, n)):
             return None
         return arenas, out_lens
+
+    def split_stream(self, comp: bytes, *, piece_cap: int = 66816,
+                     max_pieces: int = 72, out_limit: int = 65536,
+                     out_cap: int | None = None):
+        """Split one LZ4 block stream into linked pieces of at most
+        `out_limit` decoded bytes (lz4t_split_stream), cut at sequence
+        granularity (literal runs and matches that cross a piece end are
+        split), for the big-block piece-wave decode; the splitter itself
+        enforces the whole block's end rules against `out_cap`. Returns
+        (arena uint8[n_pieces, piece_cap], piece_lens int32[n_pieces],
+        piece_outs int32[n_pieces]), or None when the stream is malformed
+        or over capacity."""
+        comp = bytes(comp)
+        arena = np.zeros((max_pieces, piece_cap), np.uint8)
+        plens = np.zeros(max_pieces, np.int32)
+        pouts = np.zeros(max_pieces, np.int32)
+        if out_cap is None:
+            out_cap = max_pieces * out_limit
+        r = self._lib.lz4t_split_stream(
+            comp, len(comp), arena.ctypes.data_as(_P), piece_cap,
+            max_pieces, out_limit, out_cap, _i32p(plens), _i32p(pouts))
+        if r < 0:
+            return None
+        return arena[:r], plens[:r], pouts[:r]
 
     def wave_emit_decisions(self, blocks, decT) -> list[bytes]:
         """Serialize the wave match finder's decisions (int32[n, n_rows],

@@ -570,3 +570,48 @@ def test_b3_piece_counts(cuda, NP):
     gpu = _wave_both(cuda, arenas, np.array([k], np.int32),
                      np.frombuffer(hist, np.uint8).copy()[None])
     assert gpu[0, :k].numpy().tobytes() == linked[0]
+
+
+def test_piece_route_on_card(cuda):
+    """decode_dest "device": blocks over 256 KB decode as linked pieces,
+    one B2 launch a wave, equal to the source and to the CPU's route."""
+    hist = gen_text(70000, seed=50)
+    blocks = [gen_text(600_000, seed=51), gen_buffer(300_000, 0.95, seed=52)]
+    prefixes = [hist, None]
+    comp = [blockcodec.compress(b, dict_prefix=d)
+            for b, d in zip(blocks, prefixes)]
+    waves = max(len(blockcodec.split_stream(c, out_cap=1 << 20)[1])
+                for c in comp)
+    be = TorchBackend(cuda)
+    be.decode_dest = "device"
+    before = decode_cuda.launches
+    assert be.decompress_batch(comp, [1 << 20] * 2,
+                               dict_prefixes=prefixes) == blocks
+    assert decode_cuda.launches - before == waves
+    cpu = TorchBackend("cpu")
+    assert cpu._decompress_big_batch(comp, [1 << 20] * 2, prefixes) == blocks
+
+
+def test_sortscan_decode_on_card_equals_cpu(cuda):
+    """The sort/scan decoder's torch ops on the card give the CPU's
+    out, out_lens and errs on every row, mutated streams included."""
+    from lz4_tpu_torch.block import decode_sortscan
+    rng = np.random.default_rng(53)
+    srcs = [gen_text(65536, seed=54), gen_buffer(40000, 0.8, seed=55),
+            b"z" * 65536, rng.bytes(30000)]
+    streams = [blockcodec.compress(s) for s in srcs]
+    for k in range(24):
+        cc = bytearray(streams[k % 4])
+        cc[int(rng.integers(0, len(cc)))] = int(rng.integers(0, 256))
+        streams.append(bytes(cc[: int(rng.integers(1, len(cc) + 1))]))
+    hist = gen_text(65536, seed=56)
+    arrays = pack_blocks(streams, [hist] * len(streams),
+                         cap=max(len(s) for s in streams), with_dict=True)
+    got = decode_sortscan.decode_blocks(
+        *to_device_batch(*arrays, device=cuda), cap_out=65536, has_dict=True)
+    want = decode_sortscan.decode_blocks(
+        *to_device_batch(*arrays, device="cpu"), cap_out=65536,
+        has_dict=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert not want[2][:4].any()

@@ -137,7 +137,8 @@ def test_cli_level2_writes_the_jax_cli_frame(tmp_path, monkeypatch):
     # keep the JAX CLI's persistent compile cache out of this run
     monkeypatch.setattr(jcli, "_enable_compile_cache", lambda: None)
     port = TorchBackend("cpu")
-    monkeypatch.setattr(cli, "_select_backend", lambda name: port)
+    monkeypatch.setattr(cli, "_select_backend",
+                        lambda name, nb_workers=0: port)
     src = tmp_path / "data.bin"
     src.write_bytes(gen_text(20000, seed=41) + gen_buffer(9000, 0.8,
                                                           seed=42))

@@ -3,9 +3,9 @@ route (LZ4_TPU_PALLAS_CPU=1: its Pallas kernels in interpret mode) for
 every gate: the wave tier, the `min_device_size` gate on blocks and
 outputs, the `max_device_decode_size` gate, and the > 256 KB tier gate
 under `decode_dest`. Spies on each package's host call and device
-decodes record the routes; `TpuBackend`'s piece-wave route for > 256 KB
-tiers under "device" stands against the port's B2 (the port keeps B2
-there). The bytes equal both packages' host tiers; a malformed stream
+decodes record the routes, the > 256 KB tiers under "device" taking
+each package's piece-wave route (`_decompress_big_batch`, then B2 a
+wave). The bytes equal both packages' host tiers; a malformed stream
 raises the same error class in every route. Tolerance: exact.
 """
 import pytest
@@ -43,14 +43,8 @@ def spied(monkeypatch):
     _spy(monkeypatch, tr, tbackend.HostBackend, "decompress_batch", "host")
     _spy(monkeypatch, tr, TorchBackend, "decompress_batch_wave", "wave")
     _spy(monkeypatch, tr, tengine, "decode_blocks", "B2")
+    _spy(monkeypatch, tr, TorchBackend, "_decompress_big_batch", "pieces")
     return TpuBackend(), TorchBackend("cpu"), jr, tr
-
-
-def _entry(routes):
-    """The route a call entered first; TpuBackend's piece waves stand
-    against the port's B2 (its own pallas calls and host fallback come
-    after)."""
-    return {"pieces": "B2"}.get(routes[0], routes[0])
 
 
 def _case(name):
@@ -73,7 +67,7 @@ def _case(name):
 
 
 WANT = {"dict_under_4k": "host", "dict_b2": "B2", "over256k_auto": "host",
-        "over256k_device": "B2", "over_decode_cap": "host"}
+        "over256k_device": "pieces", "over_decode_cap": "host"}
 
 
 @pytest.mark.parametrize("name", list(WANT))
@@ -85,8 +79,10 @@ def test_decode_route_matches_tpu_backend(spied, name):
     tpu.decode_dest = port.decode_dest = dest
     want = tpu.decompress_batch(comp, max_outs, dict_prefixes=prefixes)
     ours = port.decompress_batch(comp, max_outs, dict_prefixes=prefixes)
-    assert tr == [WANT[name]]
-    assert _entry(jr) == WANT[name]
+    # the piece route launches B2 once a wave; every other route once
+    assert tr[0] == jr[0] == WANT[name]
+    assert tr[1:] == ["B2"] * (len(tr) - 1 if name == "over256k_device"
+                               else 0)
     assert ours == want == blocks
     assert ours == tbackend.HostBackend().decompress_batch(
         comp, max_outs, dict_prefixes=prefixes)
@@ -124,6 +120,6 @@ def test_malformed_stream_raises_in_every_route(spied, name):
     assert type(ours.value).__name__ == type(theirs.value).__name__
     # the route entered is the gate's; a stream the wave splitter
     # rejects then goes to the host, which raises, in both
-    assert tr[0] == _entry(jr) == ("wave" if name == "wave" else WANT[name])
+    assert tr[0] == jr[0] == ("wave" if name == "wave" else WANT[name])
     if name == "wave":
         assert tr == jr == ["wave", "host"]
