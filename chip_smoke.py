@@ -32,17 +32,31 @@ launch count set to 0 just before it and read just after:
 - the port's bench at 8 MB and 1 s per timed loop (its round-trip check
   runs B6; B6 is also timed on the HC path's 48 MB batch: a launch after
   a sync, as every kernel's `ms`, and beside it launches back to back and
-  one with the L2 flushed).
+  one with the L2 flushed);
+- the frame pump: three 16 MB frames decoded on `HostBackend` with the C
+  frame walker and with the Python walk (bytes equal, pump calls
+  counted), fed in 4099-byte and 1 MiB chunks, 64 mutated frames (the
+  same error both ways), and the CLI's `--backend host -d`, timed by
+  `lz4_tpu_torch/probes/host_frame.py`;
+- the one-shot `lz4_tpu_torch.compress` / `decompress` on the default
+  backend over the 48 MB corpus in 64 KB blocks (B1 and B3 independent,
+  B1 and B2 linked, B5 and B3 at level 9), each frame also decoded on
+  `HostBackend`; `xxh64` and `compress_destsize`;
+- the 11 examples' main()s (`turbo_wave_mode` launches B4 and B3,
+  `sharded_batch` runs on its own NCCL group of one).
 
 Any failure raises. The last line is {"ok": true, "device": {...}}; the
 line before it is the card's name and power limit, and before that a
-{"kernels": [...]} line. Needs one CUDA GPU; exits non-zero without one.
+{"kernels": [...]} line (each kernel's launches on the one-shot path and
+in the examples beside those of its own path). Needs one CUDA GPU; exits
+non-zero without one.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import filecmp
+import importlib
 import io
 import json
 import os
@@ -55,24 +69,28 @@ import time
 import numpy as np
 import torch
 
+import lz4_tpu_torch
 from lz4_tpu_torch import _build, bench, cli, native, xxh32_device
 from lz4_tpu_torch.block import (decode_cuda, decode_sortscan, decode_wave,
                                  encode_cuda, encode_hc, encode_sortscan,
                                  encode_wave)
-from lz4_tpu_torch.block.backend import HostBackend, default_nb_workers
+from lz4_tpu_torch.block.backend import (HostBackend, default_backend,
+                                         default_nb_workers)
 from lz4_tpu_torch.block.batch import DICT_CAP, pack_blocks, to_device_batch
 from lz4_tpu_torch.frame import batch as frame_batch
 from lz4_tpu_torch.frame.format import FrameInfo, Preferences
-from lz4_tpu_torch.frame.reader import decompress_frame
+from lz4_tpu_torch.frame.reader import FrameDecompressor, decompress_frame
 from lz4_tpu_torch.frame.writer import compress_frame
 from lz4_tpu_torch.parallel import engine as eng
 from lz4_tpu_torch.parallel.engine import TorchBackend
+from lz4_tpu_torch.probes import host_frame
 from lz4_tpu_torch.probes._timing import (cuda_ms, cuda_ms_back_to_back,
                                           cuda_ms_flushed)
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
                                          gen_slot_words, gen_text)
 from lz4_tpu_torch.utils.realcorpus import describe, real_corpus
 from lz4_tpu_torch.xxh32 import xxh32_batch
+from lz4_tpu_torch.xxh64 import XXH64State
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 BLOCK = 65536
@@ -81,6 +99,11 @@ PLAIN_ROWS = 8
 KERNELS = {"B1": encode_cuda, "B2": decode_cuda, "B3": decode_wave,
            "B4": encode_wave, "B5": encode_hc, "B6": xxh32_device}
 HC_PLAIN_ROWS = 2
+EXAMPLES = ("simple_buffer", "file_compress", "block_streaming_double_buffer",
+            "block_streaming_ring_buffer", "block_streaming_line_by_line",
+            "streaming_hc_ring_buffer", "dictionary_random_access",
+            "frame_compress", "bench_functions", "sharded_batch",
+            "turbo_wave_mode")
 
 
 def log(*a):
@@ -1514,6 +1537,217 @@ def phase_bench():
     return launches
 
 
+# ------------------------------------------------ frame pump and surfaces
+
+def _outcome(fn):
+    """("ok", None) when fn() returns, else the class name and code of
+    what it raised."""
+    try:
+        fn()
+        return "ok", None
+    except Exception as e:  # noqa: BLE001 - the outcome is compared
+        return type(e).__name__, getattr(e, "code", None)
+
+
+def phase_frame_pump():
+    """The C frame walker behind `HostBackend` frame decodes: three 16 MB
+    frames decoded with the pump on and off (bytes equal, pump calls
+    counted), fed in 4099-byte and 1 MiB chunks, 64 mutated frames (the
+    same class and code both ways), and the CLI's `--backend host -d`;
+    host-clock ms, best of 4 after a warm-up, pump and walk in turns."""
+    corpus = real_corpus(CORPUS)
+    data = corpus[: 16 << 20]
+    host = HostBackend()
+    frames = host_frame.make_frames(data, corpus[-65536:], host)
+    calls = []
+    pump_fn = host._native.frame_pump
+    host._native.frame_pump = lambda *a: (calls.append(1), pump_fn(*a))[1]
+    try:
+        for name, (frame, d) in frames.items():
+            del calls[:]
+            back = decompress_frame(frame, backend=host, dict_content=d)
+            n_pump = len(calls)
+            with host_frame.pump(False):
+                walked = decompress_frame(frame, backend=host,
+                                          dict_content=d)
+            if not (back == walked == data) or not n_pump or \
+                    len(calls) != n_pump:
+                raise AssertionError(f"{name}: pump {n_pump} calls, walk "
+                                     f"{len(calls) - n_pump}, bytes equal "
+                                     f"{back == walked == data}")
+            short = {}
+            for chunk in (4099, 1 << 20):
+                # a feed may stop before the end of its input (a block
+                # word completed from the buffer); the rest is fed again,
+                # as the I/O engine does
+                dec = FrameDecompressor(backend=host, dict_content=d)
+                out = bytearray()
+                short[chunk] = 0
+                for i in range(0, len(frame), chunk):
+                    piece = frame[i: i + chunk]
+                    while piece:
+                        o, used = dec.feed(piece)
+                        out += o
+                        piece = piece[used:]
+                        if piece and not used:
+                            raise AssertionError(f"{name}: a feed of "
+                                                 f"{chunk} stalled")
+                        short[chunk] += bool(piece)
+                if not dec.frame_done or out != data:
+                    raise AssertionError(f"{name}: {chunk}-byte feeds differ")
+            log(f"frame pump: {name} ({len(frame)} bytes) == the Python walk "
+                f"== the source; {n_pump} pump calls; 4099-byte and 1 MiB "
+                f"feeds equal (feeds that stopped short: {short})")
+    finally:
+        del host._native.frame_pump
+    rng = np.random.default_rng(64)
+    names = list(frames)
+    kinds = {}
+    for k in range(64):
+        name = names[k % len(names)]
+        frame, d = frames[name]
+        m = bytearray(frame)
+        for _ in range(int(rng.integers(1, 4))):
+            m[int(rng.integers(7, len(m)))] ^= int(rng.integers(1, 256))
+        m = bytes(m)
+        pumped = _outcome(lambda: decompress_frame(m, backend=host,
+                                                   dict_content=d))
+        with host_frame.pump(False):
+            walked = _outcome(lambda: decompress_frame(m, backend=host,
+                                                       dict_content=d))
+        if pumped != walked or pumped[0] == "ok":
+            raise AssertionError(f"mutated {name} #{k}: pump {pumped}, walk "
+                                 f"{walked}")
+        kinds[pumped] = kinds.get(pumped, 0) + 1
+    log("frame pump: 64 mutated frames raise the same class and code both "
+        "ways: "
+        + str(sorted((f"{c}:{code}", n) for (c, code), n in kinds.items())))
+    t_frames = host_frame.time_frames(frames, data, host, 4)
+    t_cli = host_frame.time_cli(data, 4)
+    log("frame pump: decompress_frame on HostBackend, 16 MB, ms (host "
+        "clock, best of 4 after a warm-up, in turns; pump / Python walk): "
+        + ", ".join(f"{k} {v['pump']:.3f} / {v['walk']:.3f}"
+                    for k, v in t_frames.items())
+        + f"; CLI --backend host -d {t_cli['-d']['pump']:.3f} / "
+        f"{t_cli['-d']['walk']:.3f} (-1 compress {t_cli['compress_ms']:.3f})"
+        " [PR 9: 38.0 ms for the 4 MB linked frame's decode on the host; "
+        "PR 6: CLI -1 -d 49.3 / 49.7 ms on the host]")
+    return {"frames": t_frames, "cli": t_cli}
+
+
+def phase_one_shot():
+    """lz4_tpu_torch.compress / decompress on the default backend (the
+    GPU) over the 48 MB corpus in 64 KB blocks: level 1 independent (B1,
+    then B3) and linked (B1 with history, then B2 a block), and level 9
+    (B5, then B3); each frame also decodes through HostBackend."""
+    data = real_corpus(CORPUS)
+    host = HostBackend()
+    cases = (("level 1, independent", 1, True, "B1", "B3"),
+             ("level 1, linked", 1, False, "B1", "B2"),
+             ("level 9, independent", 9, True, "B5", "B3"))
+    totals = {k: 0 for k in KERNELS}
+    for what, level, independent, enc_k, dec_k in cases:
+        prefs = Preferences(frame_info=FrameInfo(
+            block_size_id=4, block_independent=independent,
+            content_checksum=True))
+        reset_launches()
+        t_c, frame = host_ms(lambda: lz4_tpu_torch.compress(
+            data, level, prefs=prefs))
+        on_c = read_launches()
+        t_d, back = host_ms(lambda: lz4_tpu_torch.decompress(frame))
+        launches = read_launches()
+        on_d = {k: launches[k] - on_c[k] for k in launches}
+        if back != data or decompress_frame(frame, backend=host) != data:
+            raise AssertionError(f"one-shot {what}: round trip differs")
+        if on_c[enc_k] < 1 or on_d[dec_k] < 1:
+            raise AssertionError(f"one-shot {what} skipped {enc_k} or "
+                                 f"{dec_k}: {on_c} then {on_d}")
+        for k in totals:
+            totals[k] += launches[k]
+        log(f"one-shot {what}: {len(data) >> 20} MB -> {len(frame)} bytes "
+            f"(ratio {len(data) / len(frame):.4f}); compress {t_c:.1f} ms, "
+            f"launches {on_c}; decompress {t_d:.1f} ms, launches {on_d} "
+            f"(host clock, single shots, default backend "
+            f"{type(default_backend()).__name__}); HostBackend decode equal")
+    return totals
+
+
+def phase_host_surfaces():
+    """xxh64 over the corpus (held to XXH64State and the public vector)
+    and compress_destsize on 768 x 64 KB blocks at a 16 KB cap."""
+    data = real_corpus(CORPUS)
+    if lz4_tpu_torch.xxh64(b"") != 0xEF46DB3751D8E999 or \
+            XXH64State().digest() != 0xEF46DB3751D8E999:
+        raise AssertionError("xxh64 misses the public vector of b''")
+    mb = data[: 1 << 20]
+    if lz4_tpu_torch.xxh64(mb, 7) != XXH64State(7).update(mb).digest():
+        raise AssertionError("xxh64 != XXH64State on 1 MB")
+    t_x = min(host_ms(lambda: lz4_tpu_torch.xxh64(data))[0]
+              for _ in range(4))
+    bc = native.blockcodec
+    blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
+    t_d, outs = host_ms(lambda: [bc.compress_destsize(b, 16384)
+                                 for b in blocks])
+    consumed = strict = 0
+    for b, (c, n) in zip(blocks, outs):
+        if len(c) > 16384 or bc.decompress(c, len(b)) != b[:n]:
+            raise AssertionError("compress_destsize output over the cap or "
+                                 "not decoding to its prefix")
+        consumed += n
+        # the strict decoder at a capacity of exactly `consumed` also holds
+        # the end rules (the last match starts >= 12 bytes before the end)
+        strict += _outcome(lambda: bc.decompress(c, n))[0] != "ok"
+    log(f"host surfaces: xxh64 of 48 MB {t_x:.3f} ms (best of 3 after a "
+        f"warm-up, {len(data) / 1e6 / t_x * 1e3:.1f} MB/s; == XXH64State on "
+        f"1 MB and the public vector); compress_destsize on {len(blocks)} x "
+        f"64 KB at cap 16384 {t_d:.1f} ms, {consumed} source bytes in "
+        f"{sum(len(c) for c, _ in outs)} (each <= cap, host decode == "
+        f"block[:consumed]; host clock); {strict} streams break the end "
+        f"rules at a capacity of exactly consumed (the reference's too)")
+
+
+def phase_examples():
+    """Each teaching program's main() on the card, its launches counted
+    (counts set to 0 just before each); `sharded_batch` makes its own
+    process group, which must be NCCL."""
+    import torch.distributed as dist
+    totals = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tdir:
+        path = os.path.join(tdir, "sample.bin")
+        with open(path, "wb") as f:
+            f.write(real_corpus(CORPUS)[: 8 << 20])
+        for name in EXAMPLES:
+            mod = importlib.import_module(f"lz4_tpu_torch.examples.{name}")
+            buf = io.StringIO()
+            groups = []
+            init = dist.init_process_group
+            dist.init_process_group = lambda backend, **kw: (
+                groups.append(backend), init(backend, **kw))[1]
+            reset_launches()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    t, _ = host_ms(lambda: mod.main(path) if name ==
+                                   "file_compress" else mod.main())
+            finally:
+                dist.init_process_group = init
+            launches = read_launches()
+            for k in totals:
+                totals[k] += launches[k]
+            if not buf.getvalue().strip():
+                raise AssertionError(f"example {name} printed nothing")
+            if name == "turbo_wave_mode" and not (launches["B4"] and
+                                                  launches["B3"]):
+                raise AssertionError(f"turbo_wave_mode skipped B4 or B3: "
+                                     f"{launches}")
+            if name == "sharded_batch" and groups != ["nccl"]:
+                raise AssertionError(f"sharded_batch made groups {groups}")
+            lines = buf.getvalue().strip().replace(tdir, "<tmp>")
+            log(f"example {name} ({t:.1f} ms, launches {launches}"
+                + (", its own NCCL group of 1" if groups else "") + "): "
+                + " | ".join(lines.splitlines()))
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1549,6 +1783,10 @@ def main() -> int:
     phase_sharded()
     phase_cli()
     bench_launches = phase_bench()
+    phase_frame_pump()
+    one_shot = phase_one_shot()
+    phase_host_surfaces()
+    example_launches = phase_examples()
 
     common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
               "blocks": m["blocks"], "plain_blocks": PLAIN_ROWS}
@@ -1605,6 +1843,10 @@ def main() -> int:
          **{k: v for k, v in hc["xxh"].items() if k != "err"},
          "ms_4mb_row": xxh_4mb_ms, **common},
     ]
+    for k in kernels:
+        key = k["name"].split()[0]
+        k["one_shot_launches"] = one_shot[key]
+        k["example_launches"] = example_launches[key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

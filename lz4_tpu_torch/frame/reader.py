@@ -1,7 +1,9 @@
 """LZ4 frame decompression: one-shot and resumable streaming reader (the
 port's own copy of lz4_tpu/frame/reader.py, driving the port's block
-backend; blocks are walked in Python and handed to the backend in
-batches).
+backend). On `HostBackend` the frame body goes through the C frame
+walker (`native/framewalk.c`), one call per run of complete blocks; on
+any other backend blocks are walked in Python and handed to the backend
+in batches.
 
 Behavioural parity targets (SURVEY.md §2 #11):
   * LZ4F_decompress's 14-stage push state machine (lz4frame.c:1248-2118) —
@@ -18,7 +20,8 @@ from __future__ import annotations
 
 import struct
 
-from lz4_tpu_torch.block.backend import BlockBackend, default_backend
+from lz4_tpu_torch.block.backend import (BlockBackend, BlockDecodeError,
+                                         HostBackend, default_backend)
 from lz4_tpu_torch.constants import (
     BLOCK_UNCOMPRESSED_FLAG,
     LEGACY_BLOCKSIZE,
@@ -50,14 +53,24 @@ class FrameDecompressor:
     _SKIP_BODY = "skip_body"
     _LEGACY_BLOCK_HEADER = "legacy_block_header"
     _LEGACY_BLOCK_DATA = "legacy_block_data"
+    _PUMP = "pump"            # the C frame walker owns the frame body
     _DONE = "done"
+
+    # The C frame walker serves HostBackend frames; False keeps the Python
+    # walk (the counterpart of the JAX package's LZ4_TPU_FRAME_PUMP=0).
+    frame_pump = True
 
     def __init__(self, *, backend: BlockBackend | None = None,
                  dict_content: bytes | None = None,
-                 verify_checksums: bool = True):
+                 verify_checksums: bool = True,
+                 zero_copy: bool = False):
         self.backend = backend or default_backend()
         self._dict = bytes(dict_content or b"")
         self.verify_checksums = verify_checksums
+        # zero_copy=True lets feed() return a memoryview over the pump's
+        # per-call arena, which nothing writes again (the I/O engine opts
+        # in); the default returns bytes.
+        self.zero_copy = zero_copy
         self.reset()
 
     def reset(self) -> None:
@@ -91,7 +104,9 @@ class FrameDecompressor:
 
     def feed(self, data: bytes) -> tuple[bytes, int]:
         """Push bytes in; returns (decoded_output, consumed). Bytes beyond
-        the end of the current frame are not consumed.
+        the end of the current frame are not consumed. With the pump a
+        feed can also stop early, after completing a block word from its
+        buffer (as in the JAX reader): feed the rest again.
 
         Independent-mode blocks that arrive complete within one feed()
         are decoded as ONE batch (the device grid is the worker pool);
@@ -99,8 +114,24 @@ class FrameDecompressor:
         block's output as history."""
         data = bytes(data)
         out = bytearray()
+        fast = None        # the pump's one buffer, handed on uncopied
         consumed = 0
         while self._stage != self._DONE:
+            if self._stage == self._PUMP:
+                pieces, used = self._pump_feed(data, consumed)
+                consumed += used
+                if pieces:
+                    if not out and fast is None and len(pieces) == 1:
+                        fast = pieces[0]
+                    else:
+                        if fast is not None:
+                            out += fast
+                            fast = None
+                        for p in pieces:
+                            out += p
+                if self._stage == self._PUMP:
+                    break          # everything consumable is consumed
+                continue
             if not self._buf and len(data) - consumed >= self._need:
                 # fast path: the whole stage payload is available in
                 # the input — one extraction, no bytearray round trip
@@ -120,7 +151,14 @@ class FrameDecompressor:
             chunk = bytes(self._buf[: self._need])
             del self._buf[: self._need]
             out += self._step(chunk)
-        out += self._flush_batch()
+        out_flush = self._flush_batch()
+        if out_flush:
+            if fast is not None:
+                out += fast
+                fast = None
+            out += out_flush
+        if fast is not None:
+            return (fast if self.zero_copy else bytes(fast)), consumed
         return bytes(out), consumed
 
     # ------------------------------------------------------------- stages
@@ -169,6 +207,21 @@ class FrameDecompressor:
             return b""
         self._stage = self._BLOCK_HEADER
         self._need = 4
+        # the C frame walker (native/framewalk.c, the decode loop of the
+        # reference's lz4io.c:1942-2203): on the host C tier the whole
+        # frame body (block words, checksums, linked history, content
+        # XXH32) goes through one C call per run of complete blocks
+        bc = self._pump_eligible()
+        if bc is not None:
+            self._pump_bc = bc
+            self._pump_state = bc.frame_state_new(
+                block_checksum=info.block_checksum,
+                independent=info.block_independent,
+                content_checksum=info.content_checksum,
+                verify=self.verify_checksums,
+                block_max=info.block_max_size,
+                dict_content=self._dict)
+            self._stage = self._PUMP
         return b""
 
     def _on_block_header(self, chunk: bytes) -> bytes:
@@ -250,6 +303,109 @@ class FrameDecompressor:
             self._account(d)
             out += d
         return bytes(out)
+
+    # ------------------------------------------------------------ the pump
+    def _pump_eligible(self):
+        """The C block codec facade when the frame walker should own this
+        frame's body: `frame_pump` on and a `HostBackend` (any other
+        backend keeps the Python walk, so block batches still go to the
+        GPU)."""
+        if self.frame_pump and isinstance(self.backend, HostBackend):
+            return self.backend._native
+        return None
+
+    def _pump_raise(self, status: int):
+        """The Python walk's error for the walker's status."""
+        if status == -2:
+            raise FrameError("blockChecksum_invalid")
+        if status == -3:
+            raise FrameError("contentChecksum_invalid")
+        if status == -4:
+            raise FrameError("maxBlockSize_invalid")
+        raise BlockDecodeError("malformed block (C frame walker)")
+
+    def _pump_set_need(self, data, pos: int) -> None:
+        """Size the next unit (block word + payload [+ block checksum], or
+        endmark [+ content checksum]) from the walker's stage and 4 bytes
+        of lookahead, so that a sub-unit tail buffers exactly."""
+        if self._pump_bc.frame_stage(self._pump_state) == 1:
+            self._need = 4                    # content checksum
+            return
+        if len(data) - pos >= 4:
+            word = struct.unpack("<I", data[pos: pos + 4])[0]
+            if word == 0:
+                self._need = 4 + (4 if self._info.content_checksum
+                                  else 0)
+            else:
+                size = word & ~BLOCK_UNCOMPRESSED_FLAG
+                if size > self._info.block_max_size:
+                    raise FrameError("maxBlockSize_invalid",
+                                     f"block size {size}")
+                self._need = 4 + size + (4 if self._info.block_checksum
+                                         else 0)
+        else:
+            self._need = 4
+
+    def _pump_feed(self, data: bytes, start: int) -> tuple[list, int]:
+        """Drive the walker over data[start:]; returns (the decoded
+        buffers, consumed). Consumes every complete unit and buffers a
+        sub-unit tail in self._buf for the next feed."""
+        bc = self._pump_bc
+        st = self._pump_state
+        pos = start
+        out: list = []
+        out_cap = max(2 * self._info.block_max_size, 1 << 22)
+        while self._stage == self._PUMP:
+            if self._buf:
+                take = min(len(data) - pos, self._need - len(self._buf))
+                if take > 0:
+                    self._buf += data[pos: pos + take]
+                    pos += take
+                if len(self._buf) < self._need:
+                    break
+                chunk = bytes(self._buf)
+                del self._buf[:]
+                # a buffered unit holds at most one block: an arena of
+                # block_max, not the bulk cap
+                status, produced, used = bc.frame_pump(
+                    st, chunk, 0, self._info.block_max_size)
+                if len(produced):
+                    out.append(produced)
+                self._total_out += len(produced)
+                if status < 0:
+                    self._pump_raise(status)
+                if status == 1:
+                    self._finish()
+                    break
+                if used < len(chunk):
+                    self._buf += chunk[used:]
+                self._pump_set_need(bytes(self._buf), 0)
+                if used == 0:
+                    break          # a complete unit could not advance yet
+                continue
+            status, produced, used = bc.frame_pump(st, data, pos, out_cap)
+            pos += used
+            if len(produced):
+                out.append(produced)
+            self._total_out += len(produced)
+            if status < 0:
+                self._pump_raise(status)
+            if status == 1:
+                self._finish()
+                break
+            rem = len(data) - pos
+            if used > 0 and rem > 0:
+                continue           # stopped for output space: go again
+            if rem == 0:
+                break
+            # a sub-unit tail: buffer it for the next feed
+            self._pump_set_need(data, pos)
+            take = min(rem, self._need)
+            self._buf += data[pos: pos + take]
+            pos += take
+            if len(self._buf) < self._need:
+                break
+        return out, pos - start
 
     def _on_content_checksum(self, chunk: bytes) -> bytes:
         want = struct.unpack("<I", chunk)[0]

@@ -445,7 +445,8 @@ def decompress_file(src_path: str, dst_path: str | None,
                 raise FrameError("frameType_unknown",
                                  f"magic 0x{magic:08X} in {src_path}")
             dec = FrameDecompressor(backend=backend,
-                                    dict_content=dict_content)
+                                    dict_content=dict_content,
+                                    zero_copy=True)
             while True:
                 out, consumed = dec.feed(pending)
                 pending = pending[consumed:]

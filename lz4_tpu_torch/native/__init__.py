@@ -1,6 +1,6 @@
-"""Host C tier: the block codec, HC codec and XXH32 in C (`*.c` here, the
-port's own copies), built at first use with the system C compiler and
-loaded with ctypes.
+"""Host C tier: the block codec, HC codec, frame walker, XXH32 and XXH64
+in C (`*.c` here, the port's own copies), built at first use with the
+system C compiler and loaded with ctypes.
 
 The library goes into the git-ignored `lz4_tpu_torch/_build/`; its name
 carries a hash of the sources and flags, so an edited source is rebuilt
@@ -9,10 +9,10 @@ renames it into place, so concurrent processes never load a half-written
 library. A failed build raises: there is no Python fallback.
 
 Two facades keep the method names and return types of the JAX package's
-host tier: `xxh` (one-shot XXH32 and the stripe rounds of the streaming
-form) and `blockcodec` (fast, capped and HC block compression, strict
-decode, the wave tier's splitter and emitter, and the big-block stream
-splitter). The batch calls of
+host tier: `xxh` (one-shot XXH32 and XXH64, and the stripe rounds of
+the streaming XXH32) and `blockcodec` (fast, capped, dest-size and HC
+block compression, strict decode, the wave tier's splitter and emitter,
+the big-block stream splitter and the frame pump). The batch calls of
 the wave tier split a large batch into contiguous spans of rows, one C
 call per host core at once: ctypes releases the GIL during a call, and
 each row's result does not depend on the others.
@@ -105,6 +105,16 @@ def _configure(lib: ctypes.CDLL) -> None:
                                           _I32P, _L, _P, _L, _I32P]),
         "lz4t_split_stream": (_L, [_CP, _L, _P, _L, _L, _L, _L, _I32P,
                                    _I32P]),
+        "lz4t_xxh64": (ctypes.c_uint64, [_CP, ctypes.c_size_t,
+                                         ctypes.c_uint64]),
+        "lz4t_compress_destsize": (_L, [_CP, _L, _CP, _L,
+                                        ctypes.POINTER(_L)]),
+        "lz4t_frame_state_size": (_L, []),
+        "lz4t_frame_stage": (_L, [_P]),
+        "lz4t_frame_state_init": (None, [_P, ctypes.c_uint32,
+                                         ctypes.c_uint32, _CP, _L]),
+        "lz4t_frame_pump": (_L, [_P, _P, _L, _P, _L, ctypes.POINTER(_L),
+                                 ctypes.POINTER(_L)]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -153,7 +163,7 @@ def _with_history(data: bytes, dict_prefix) -> tuple:
 
 
 class _XXH:
-    """XXH32 in C."""
+    """XXH32 and XXH64 in C."""
 
     def __init__(self, lib: ctypes.CDLL):
         self._lib = lib
@@ -169,6 +179,10 @@ class _XXH:
         arr = (ctypes.c_uint32 * 4)(*[a & 0xFFFFFFFF for a in accs])
         self._lib.lz4t_xxh32_rounds(data, len(data), arr)
         return [arr[0], arr[1], arr[2], arr[3]]
+
+    def xxh64(self, data, seed: int = 0) -> int:
+        data = bytes(data)
+        return self._lib.lz4t_xxh64(data, len(data), seed & 0xFFFFFFFFFFFFFFFF)
 
 
 class _BlockCodec:
@@ -245,6 +259,18 @@ class _BlockCodec:
         if n < 0:
             raise BlockDecodeError("C decoder rejected stream")
         return dst.raw[:n]
+
+    def compress_destsize(self, data: bytes,
+                          dst_cap: int) -> tuple[bytes, int]:
+        """Pack as much of `data` as fits in `dst_cap` compressed bytes
+        (LZ4_compress_destSize). Returns (compressed, consumed source
+        bytes)."""
+        data = bytes(data)
+        dst = ctypes.create_string_buffer(max(1, dst_cap))
+        consumed = _L(0)
+        n = self._lib.lz4t_compress_destsize(data, len(data), dst, dst_cap,
+                                             ctypes.byref(consumed))
+        return dst.raw[:n], consumed.value
 
     def compress_batch(self, blocks, acceleration: int = 1) -> list[bytes]:
         """Independent dict-less blocks in one C call."""
@@ -371,6 +397,52 @@ class _BlockCodec:
             if r != 0:
                 raise RuntimeError(f"wave emit failed ({r})")
         return [dst[i, : sizes[i]].tobytes() for i in range(n)]
+
+    # The frame pump (framewalk.c): one C call decodes a run of complete
+    # frame blocks (block words, checksums, the linked 64 KB history and
+    # the content XXH32), the decode loop of the reference's lz4io.c.
+
+    FW_FLAG_BLOCK_CHECKSUM = 1
+    FW_FLAG_INDEPENDENT = 2
+    FW_FLAG_CONTENT_CHECKSUM = 4
+    FW_FLAG_VERIFY = 8
+
+    def frame_state_new(self, *, block_checksum: bool, independent: bool,
+                        content_checksum: bool, verify: bool,
+                        block_max: int, dict_content: bytes | None = None):
+        """A walker state for one frame body, its history seeded with the
+        last 64 KB of `dict_content`."""
+        st = ctypes.create_string_buffer(self._lib.lz4t_frame_state_size())
+        flags = ((self.FW_FLAG_BLOCK_CHECKSUM if block_checksum else 0)
+                 | (self.FW_FLAG_INDEPENDENT if independent else 0)
+                 | (self.FW_FLAG_CONTENT_CHECKSUM if content_checksum
+                    else 0)
+                 | (self.FW_FLAG_VERIFY if verify else 0))
+        d = bytes(dict_content or b"")
+        self._lib.lz4t_frame_state_init(st, flags, block_max, d, len(d))
+        return st
+
+    def frame_stage(self, st) -> int:
+        """0 while the walker expects block words, 1 when it expects the
+        content checksum."""
+        return int(self._lib.lz4t_frame_stage(st))
+
+    def frame_pump(self, st, data, offset: int, out_cap: int):
+        """Decode the complete blocks of data[offset:] into a fresh arena
+        of out_cap bytes (at least the frame's block_max). Returns
+        (status, produced, consumed): status 1 when the frame ended, 0
+        when it stopped for input or output space, -2 a block checksum,
+        -3 the content checksum, -4 a block size over block_max, -5 a
+        malformed block. `produced` is a memoryview over the arena, which
+        nothing writes again."""
+        view = np.frombuffer(data, np.uint8)[offset:]
+        out = np.empty(out_cap, np.uint8)
+        consumed = _L(0)
+        produced = _L(0)
+        status = self._lib.lz4t_frame_pump(
+            st, view.ctypes.data_as(_P), view.size, out.ctypes.data_as(_P),
+            out_cap, ctypes.byref(consumed), ctypes.byref(produced))
+        return int(status), out[: produced.value].data, int(consumed.value)
 
 
 def __getattr__(name: str):

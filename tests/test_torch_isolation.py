@@ -12,12 +12,15 @@ import torch
 
 import lz4_tpu_torch
 from lz4_tpu_torch import _build, native
+from lz4_tpu_torch.block import backend
 from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.decode_cuda import decode_blocks
 from lz4_tpu_torch.block.decode_wave import wave_decode_batch
 from lz4_tpu_torch.block.encode_cuda import encode_blocks
 from lz4_tpu_torch.block.encode_hc import encode_blocks_hc
 from lz4_tpu_torch.block.encode_wave import find_matches_batch
+from lz4_tpu_torch.examples import (sharded_batch, simple_buffer,
+                                    turbo_wave_mode)
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
 from lz4_tpu_torch.probes import (b1_split, b4_split, b5_split, decode_split,
@@ -26,6 +29,7 @@ from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.xxh32_device import xxh32_blocks
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+EXAMPLES = sorted(p.stem for p in (ROOT / "examples").glob("*.py"))
 PKG = pathlib.Path(lz4_tpu_torch.__file__).resolve().parent
 
 
@@ -95,6 +99,16 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         compress_frames_wave([b"abc" * 100])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decompress_frames_wave([b""])
+    # the one-shot surfaces and the examples on the default backend
+    monkeypatch.setattr(backend, "_DEFAULT", None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lz4_tpu_torch.compress(b"abc" * 100)
+    frame = lz4_tpu_torch.compress(b"abc" * 100, backend=HostBackend())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lz4_tpu_torch.decompress(frame)
+    for example in (simple_buffer, turbo_wave_mode, sharded_batch):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            example.main()
 
 
 def test_native_is_checked_for_imports():
@@ -103,8 +117,10 @@ def test_native_is_checked_for_imports():
     for m in ("cli", "bench", "bench_harness", "xxh32_device", "io.engine",
               "frame.file", "block.encode_hc", "probes.b1_split",
               "block.encode_sortscan", "probes.b4_split",
-              "probes.level2_route", "probes.decode_split"):
+              "probes.level2_route", "probes.decode_split", "xxh64",
+              "examples", *(f"examples.{e}" for e in EXAMPLES)):
         assert f"lz4_tpu_torch.{m}" in _modules()
+    assert str(PKG / "native" / "framewalk.c") in native.sources()
 
 
 def test_host_backend_raises_without_a_compiler(monkeypatch, tmp_path):
