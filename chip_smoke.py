@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from lz4_tpu_torch/csrc with nvcc (all at once)
-and the host C library with cc, holds each kernel (B1-B6) against its
-plain PyTorch version on the card (and B6 against the host C XXH32 on
-rows of 1 MB and 4 MB and on batches of 1, 7 and 768 rows), then drives
+Builds the CUDA kernels from lz4_tpu_torch/csrc with nvcc (all at once,
+the probe kernels P1-P4 too) and the host C library with cc, holds each
+kernel (B1-B6) against its plain PyTorch version on the card (and B6
+against the host C XXH32 on rows of 1 MB and 4 MB and on batches of 1, 7
+and 768 rows), then drives
 the port's paths through the entry points a user calls, each with every
 launch count set to 0 just before it and read just after:
 
@@ -43,7 +44,12 @@ launch count set to 0 just before it and read just after:
   B1 and B2 linked, B5 and B3 at level 9), each frame also decoded on
   `HostBackend`; `xxh64` and `compress_destsize`;
 - the 11 examples' main()s (`turbo_wave_mode` launches B4 and B3,
-  `sharded_batch` runs on its own NCCL group of one).
+  `sharded_batch` runs on its own NCCL group of one);
+- the TPU probes of `tools/` on their Hopper kernels (P1
+  `probes/gather_probe.py`, P2/P3 `probes/walk_probe.py`, P4
+  `probes/lane_probe.py`): every body timed at the tool's sizes, and the
+  output of its last timed launch held against its plain version on the
+  same inputs.
 
 Any failure raises. The last line is {"ok": true, "device": {...}}; the
 line before it is the card's name and power limit, and before that a
@@ -61,7 +67,6 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -83,7 +88,10 @@ from lz4_tpu_torch.frame.reader import FrameDecompressor, decompress_frame
 from lz4_tpu_torch.frame.writer import compress_frame
 from lz4_tpu_torch.parallel import engine as eng
 from lz4_tpu_torch.parallel.engine import TorchBackend
-from lz4_tpu_torch.probes import host_frame
+from lz4_tpu_torch.probes import (gather_probe, host_frame, lane_probe,
+                                  walk_probe)
+from lz4_tpu_torch.probes._common import measure
+from lz4_tpu_torch.probes._timing import card as card_line
 from lz4_tpu_torch.probes._timing import (cuda_ms, cuda_ms_back_to_back,
                                           cuda_ms_flushed)
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
@@ -108,13 +116,6 @@ EXAMPLES = ("simple_buffer", "file_compress", "block_streaming_double_buffer",
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
 
 
 def host_ms(fn):
@@ -1748,6 +1749,45 @@ def phase_examples():
     return totals
 
 
+PROBES = (gather_probe, walk_probe, lane_probe)
+
+
+def phase_probes():
+    """The TPU probes of tools/ (P1-P4) on their Hopper kernels: every
+    body timed at the tool's sizes, and the output of its last timed
+    launch held against its plain version on the same inputs (exact),
+    through `probes/_common.measure`, with each probe's launch count set
+    to 0 just before and read just after (each body's `launches` are
+    those its timing made)."""
+    entries = []
+    for mod in PROBES:
+        mod.launches = 0
+        res = measure(mod.bodies(), lambda mod=mod: mod.launches)
+        if sum(r["launches"] for r in res.values()) != mod.launches:
+            raise AssertionError(f"{mod.__name__}: launches per body do "
+                                 f"not add up to {mod.launches}")
+        for name, r in res.items():
+            e = {"name": name, "route": "cuda", "source": mod.SOURCE,
+                 "path": "probes", **r}
+            entries.append(e)
+            log(f"probe {name}: {e['ms']:.4f} ms ("
+                f"{e['ms_back_to_back']:.4f} back to back, "
+                f"{e['launches']} launches)"
+                + (f", {e['cycles_per_step']:.2f} SM cycles a step"
+                   if "cycles_per_step" in e else "")
+                + (f", library {e['library_ms']:.4f} ms"
+                   if e["library_ms"] is not None else "")
+                + f"; plain {e['plain_ms']:.1f} ms, "
+                + ("== plain" if e["same_as_plain"] else "DIFFERS")
+                + f" at {e['count']}")
+    bad = [e["name"] for e in entries
+           if not e["same_as_plain"] or not e["launches"]]
+    if bad:
+        raise AssertionError(f"probe kernels differ from plain or were "
+                             f"not launched: {bad}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1787,6 +1827,7 @@ def main() -> int:
     one_shot = phase_one_shot()
     phase_host_surfaces()
     example_launches = phase_examples()
+    probes = phase_probes()
 
     common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
               "blocks": m["blocks"], "plain_blocks": PLAIN_ROWS}
@@ -1847,7 +1888,7 @@ def main() -> int:
         key = k["name"].split()[0]
         k["one_shot_launches"] = one_shot[key]
         k["example_launches"] = example_launches[key]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

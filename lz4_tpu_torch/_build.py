@@ -45,6 +45,12 @@ KERNELS = {
     "encode_hc": ("lz4t_encode_hc", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P)),
     "xxh32": ("lz4t_xxh32_blocks", (_P, _P, _P, _I, _I, _U, _P)),
+    # the probes of `probes/{walk,gather,lane}_probe.py`
+    "probe_walk": ("lz4t_probe_walk", (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P)),
+    "probe_gather": ("lz4t_probe_gather", (_P, _P, _P, _P, _P, _I, _I, _I,
+                                           _I, _I, _P)),
+    "probe_lane": ("lz4t_probe_lane", (_P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
 _LIBS: dict[tuple, ctypes.CDLL] = {}

@@ -61,6 +61,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr uint32_t kP1 = 2654435761u;
@@ -374,21 +376,9 @@ extern "C" int lz4t_xxh32_blocks(const void* data, const void* lens,
                                  void* out, int B, int cap, uint32_t seed,
                                  void* stream) {
   if (B <= 0) return 0;
-  if (kDynSmem > 48 * 1024) {
-    // the shared-memory limit is raised once a device (a bit each; devices
-    // past 63 set it on every launch), off the host's path of later calls
-    static std::atomic<unsigned long long> raised{0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-    if (e == cudaSuccess && !(raised.load() & bit)) {
-      e = cudaFuncSetAttribute(xxh32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDynSmem);
-      if (e == cudaSuccess) raised.fetch_or(bit);
-    }
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static std::atomic<unsigned long long> raised{0};
+  const cudaError_t e = lz4t::allow_smem(xxh32_kernel, kDynSmem, raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
   xxh32_kernel<<<lz4t_xxh32_grid(B), kThreads, kDynSmem,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int*>(lens),

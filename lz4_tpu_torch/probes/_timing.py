@@ -9,14 +9,27 @@
   which evicts the 50 MB L2, and a spin on the card of some 100 us, which
   lets the host queue the call before the card reaches it.
 
-Each warms up with one call first. Needs a CUDA device.
+Each warms up with one call first. Needs a CUDA device. `card()` is the
+card's name and power limit as nvidia-smi gives them, for every line a
+probe prints.
 """
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
 FLUSH_BYTES = 128 << 20
 SPIN_CYCLES = 200_000        # some 100 us at the H100's clock
+
+
+def card() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+    of the first card."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
 
 
 def _events():

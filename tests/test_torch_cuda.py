@@ -1,4 +1,5 @@
-"""Kernels B1-B6 against their plain PyTorch versions on the card.
+"""Kernels B1-B6 and the probe kernels P1-P4 against their plain PyTorch
+versions on the card.
 
 These need an NVIDIA GPU with nvcc and skip elsewhere. On a machine with
 the card (and without JAX, which tests/conftest.py imports) run:
@@ -18,6 +19,7 @@ from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
 from lz4_tpu_torch.native import blockcodec, xxh
 from lz4_tpu_torch.parallel.engine import TorchBackend
+from lz4_tpu_torch.probes import gather_probe, lane_probe, walk_probe
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
                                          gen_slot_words, gen_text)
 from lz4_tpu_torch.xxh32 import xxh32_batch
@@ -615,3 +617,161 @@ def test_sortscan_decode_on_card_equals_cpu(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert not want[2][:4].any()
+
+
+# ------------------------------- probe kernels P1-P4, cut sizes and past wraps
+
+@pytest.mark.parametrize("grid", [8, 16])
+@pytest.mark.parametrize("variant", list(walk_probe.WALKS))
+def test_walk_probe_matches_plain(cuda, variant, grid):
+    w, n = walk_probe.inputs(n=4096)
+    words, ns = torch.from_numpy(w).to(cuda), torch.from_numpy(n).to(cuda)
+    acc, taken, cycles = walk_probe.walk(words, ns, variant, grid=grid,
+                                         steps=512)
+    pacc, ptaken = walk_probe.walk_plain(words.cpu(), ns.cpu(), variant,
+                                         grid=grid, steps=512)
+    assert torch.equal(acc.cpu(), pacc) and torch.equal(taken.cpu(), ptaken)
+    assert cycles.shape == (grid,) and bool((cycles > 0).all())
+
+
+def test_walk_probe_clamps_n(cuda):
+    w, _ = walk_probe.inputs(rows=2, words=64)
+    ns = torch.tensor([10**6, -5], dtype=torch.int32, device=cuda)
+    words = torch.from_numpy(w).to(cuda)
+    for variant in walk_probe.WALKS:
+        if variant == "e":
+            continue
+        acc, taken, _ = walk_probe.walk(words, ns, variant)
+        pacc, ptaken = walk_probe.walk_plain(words.cpu(), ns.cpu(), variant,
+                                             grid=2)
+        assert torch.equal(acc.cpu(), pacc), variant
+        assert torch.equal(taken.cpu(), ptaken), variant
+
+
+@pytest.mark.parametrize("variant,n", [("a", 66560), ("d", 66560),
+                                       ("d_warp", 66560), ("e", 65536)])
+def test_walk_probe_matches_plain_at_full_size(cuda, variant, n):
+    """The whole 66,560-byte row the kernel copies to shared memory, and
+    e at the tool's 26,214 steps (p wraps at 65,536)."""
+    w, ns = walk_probe.inputs(n=n)
+    acc, taken, _ = walk_probe.walk(torch.from_numpy(w).to(cuda),
+                                    torch.from_numpy(ns).to(cuda), variant)
+    pacc, ptaken, _ = walk_probe.walk(w, ns, variant, device="cpu")
+    assert torch.equal(acc.cpu(), pacc) and torch.equal(taken.cpu(), ptaken)
+
+
+@pytest.mark.parametrize("mode", ["arbitrary", "parallel"])
+def test_burn_probe_matches_plain(cuda, mode):
+    """__fmul_rn / __fadd_rn: the float32 rounding of the plain version,
+    bit for bit."""
+    x = torch.tensor([0.75], dtype=torch.float32, device=cuda)
+    got, cycles = walk_probe.burn(x, mode, steps=2048)
+    assert torch.equal(got.cpu(), walk_probe.burn_plain(x.cpu(), steps=2048))
+    assert cycles.numel() == (1 if mode == "arbitrary" else 16)
+
+
+@pytest.mark.parametrize("body", list(gather_probe.VARIANTS))
+def test_gather_probe_matches_plain(cuda, body):
+    d = gather_probe.inputs(b=2, r=64)
+    steps = 512 if body == "hops" else None
+    args = [torch.from_numpy(a) for a in gather_probe._args(body, d)]
+    got, stats = gather_probe.gather(body, *(a.to(cuda) for a in args),
+                                     steps=steps)
+    want, _ = gather_probe.gather(body, *args, steps=steps)
+    assert torch.equal(got.cpu(), want)
+    assert (stats is None) == (body in ("lane", "flat", "row"))
+
+
+@pytest.mark.parametrize("body", ["lane", "flat", "row", "hops"])
+def test_gather_probe_wraps_out_of_range(cuda, body):
+    rng = np.random.default_rng(61)
+    shape = (2, 64, 128)
+    a = rng.integers(-3 * 8192, 3 * 8192, shape, dtype=np.int32)
+    b = rng.integers(-3 * 8192, 3 * 8192, shape, dtype=np.int32)
+    steps = 256 if body == "hops" else None
+    got, _ = gather_probe.gather(body, torch.from_numpy(a).to(cuda),
+                                 torch.from_numpy(b).to(cuda), steps=steps)
+    want, _ = gather_probe.gather(body, a, b, steps=steps, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("body", list(lane_probe.BODIES))
+def test_lane_probe_matches_plain(cuda, body):
+    d = lane_probe.inputs()
+    src, idx = d[body]
+    fn, kind, _, _, _ = lane_probe.BODIES[body]
+    if fn == "gather":
+        got = lane_probe.gather(kind, torch.from_numpy(src).to(cuda),
+                                torch.from_numpy(idx).to(cuda))
+        want = lane_probe.gather(kind, src, idx, device="cpu")
+    elif fn == "loop":
+        got, stats = lane_probe.loop(kind, torch.from_numpy(src).to(cuda), 64)
+        want, _ = lane_probe.loop(kind, src, 64, device="cpu")
+        assert bool((stats[:, 1] == 64).all())
+    else:
+        got, _ = lane_probe.wave(torch.from_numpy(src).to(cuda), 64)
+        want, _ = lane_probe.wave(src, 64, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_wave_probe_past_the_ring_wrap(cuda):
+    """1100 steps: the 512-row history wraps twice."""
+    src, _ = lane_probe.inputs()["t_wave"]
+    got, _ = lane_probe.wave(torch.from_numpy(src).to(cuda), 1100)
+    want, _ = lane_probe.wave(src, 1100, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_lane_probe_full_int32_range(cuda):
+    """Negative sources: floor mod, arithmetic shifts and int32 wrapping
+    of the wave step and the loops, as the plain version's."""
+    rng = np.random.default_rng(62)
+    src = rng.integers(-2**31, 2**31, (512, 128), dtype=np.int32)
+    dsrc = torch.from_numpy(src).to(cuda)
+    for kind in ("a0_8", "a1_8", "2step", "a0_big", "onehot"):
+        got, _ = lane_probe.loop(kind, dsrc, 48)
+        want, _ = lane_probe.loop(kind, src, 48, device="cpu")
+        assert torch.equal(got.cpu(), want), kind
+    got, _ = lane_probe.wave(dsrc[:8].contiguous(), 200)
+    want, _ = lane_probe.wave(src[:8], 200, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    w = torch.from_numpy(src[:8]).to(cuda)
+    assert torch.equal(lane_probe.gather("2step", w, w).cpu(),
+                       lane_probe.gather("2step", src[:8], src[:8],
+                                         device="cpu"))
+
+
+def test_probe_wrappers_raise_on_wrong_layout(cuda):
+    words = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    ns = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        walk_probe.walk(words.to(torch.int64), ns, "a")
+    with pytest.raises(ValueError, match="inputs on"):
+        walk_probe.walk(words, ns.cpu(), "a")
+    with pytest.raises(ValueError, match="ns must be"):
+        walk_probe.walk(words, ns[:1], "a")
+    with pytest.raises(ValueError, match="contiguous"):
+        walk_probe.walk(torch.zeros((64, 2), dtype=torch.int32,
+                                    device=cuda).t(), ns, "a")
+    with pytest.raises(TypeError, match="float32"):
+        walk_probe.burn(torch.ones(1, device=cuda, dtype=torch.float64),
+                        "parallel")
+    x = torch.zeros((1, 64, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="inputs on"):
+        gather_probe.gather("lane", x, x.cpu())
+    with pytest.raises(ValueError, match="one shape"):
+        gather_probe.gather("row", x, x[:, :32].contiguous())
+    with pytest.raises(ValueError, match="powers of two"):
+        gather_probe.gather("flat", x[:, :48].contiguous(),
+                            x[:, :48].contiguous())
+    src = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        lane_probe.loop("base", src.to(torch.int16), 4)
+    with pytest.raises(ValueError, match="power of two"):
+        lane_probe.loop("a0_big", torch.zeros((24, 128), dtype=torch.int32,
+                                              device=cuda), 4)
+    with pytest.raises(ValueError, match="inputs on"):
+        lane_probe.gather("a0", src, src.cpu())
+    with pytest.raises(ValueError, match="int32\\[8, 128\\]"):
+        lane_probe.wave(torch.zeros((16, 128), dtype=torch.int32,
+                                    device=cuda), 4)

@@ -24,7 +24,8 @@ from lz4_tpu_torch.examples import (sharded_batch, simple_buffer,
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
 from lz4_tpu_torch.probes import (b1_split, b4_split, b5_split, decode_split,
-                                  level2_route)
+                                  gather_probe, lane_probe, level2_route,
+                                  walk_probe)
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.xxh32_device import xxh32_blocks
 
@@ -118,6 +119,8 @@ def test_native_is_checked_for_imports():
               "frame.file", "block.encode_hc", "probes.b1_split",
               "block.encode_sortscan", "probes.b4_split",
               "probes.level2_route", "probes.decode_split", "xxh64",
+              "probes.walk_probe", "probes.gather_probe",
+              "probes.lane_probe",
               "examples", *(f"examples.{e}" for e in EXAMPLES)):
         assert f"lz4_tpu_torch.{m}" in _modules()
     assert str(PKG / "native" / "framewalk.c") in native.sources()
@@ -196,4 +199,33 @@ def test_level2_probe_needs_a_gpu(monkeypatch, capsys):
 def test_decode_probe_needs_a_gpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert decode_split.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_probe_kernels_raise_without_gpu(monkeypatch):
+    """The probes of the TPU tools run on the card unless asked for the
+    CPU (their plain versions)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    words, ns = walk_probe.inputs(rows=1, words=8, n=16)
+    x = np.zeros((1, 8, 128), np.int32)
+    src = np.zeros((8, 128), np.int32)
+    calls = [lambda: walk_probe.walk(words, ns, "a"),
+             lambda: walk_probe.burn(np.ones(1, np.float32), "parallel"),
+             lambda: gather_probe.gather("lane", x, x),
+             lambda: gather_probe.gather("chase", x),
+             lambda: lane_probe.gather("a0", src, src),
+             lambda: lane_probe.loop("base", src, 4),
+             lambda: lane_probe.wave(src, 4)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    acc, _, _ = walk_probe.walk(words, ns, "a", device="cpu")
+    assert acc.device.type == "cpu"
+
+
+@pytest.mark.parametrize("probe", [walk_probe, gather_probe, lane_probe],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_tool_probes_need_a_gpu(monkeypatch, capsys, probe):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe.main([]) != 0
     assert capsys.readouterr().out == ""
