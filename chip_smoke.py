@@ -45,6 +45,15 @@ launch count set to 0 just before it and read just after:
   `HostBackend`; `xxh64` and `compress_destsize`;
 - the 11 examples' main()s (`turbo_wave_mode` launches B4 and B3,
   `sharded_batch` runs on its own NCCL group of one);
+- the port's host tools: the differential fuzzer
+  (`lz4_tpu_torch/probes/torture.py`) for 45 s with `--kernels --wave`
+  (B1, B2, the wave splitter with B3, the linked ring, the batch frames
+  with B4) and 15 s on the sort/scan legs, every mutated stream held
+  between host C and the card's decoders; the per-stage micro-benchmark
+  (`probes/fullbench.py`) at the tool's defaults and level 2's encode
+  and the sort/scan decode split at 768 x 64 KB; the frame validator
+  (`lz4_tpu_torch/checkframe.py`) on the frames written above, a legacy
+  and a skippable frame, and three corrupted copies that must fail;
 - the TPU probes of `tools/` on their Hopper kernels (P1
   `probes/gather_probe.py`, P2/P3 `probes/walk_probe.py`, P4
   `probes/lane_probe.py`): every body timed at the tool's sizes, and the
@@ -53,8 +62,8 @@ launch count set to 0 just before it and read just after:
 
 Any failure raises. The last line is {"ok": true, "device": {...}}; the
 line before it is the card's name and power limit, and before that a
-{"kernels": [...]} line (each kernel's launches on the one-shot path and
-in the examples beside those of its own path). Needs one CUDA GPU; exits
+{"kernels": [...]} line (each kernel's launches on the one-shot path, in
+the examples and in the torture phase beside those of its own path). Needs one CUDA GPU; exits
 non-zero without one.
 """
 from __future__ import annotations
@@ -70,12 +79,13 @@ import re
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 import lz4_tpu_torch
-from lz4_tpu_torch import _build, bench, cli, native, xxh32_device
+from lz4_tpu_torch import _build, bench, checkframe, cli, native, xxh32_device
 from lz4_tpu_torch.block import (decode_cuda, decode_sortscan, decode_wave,
                                  encode_cuda, encode_hc, encode_sortscan,
                                  encode_wave)
@@ -85,15 +95,16 @@ from lz4_tpu_torch.block.batch import DICT_CAP, pack_blocks, to_device_batch
 from lz4_tpu_torch.frame import batch as frame_batch
 from lz4_tpu_torch.frame.format import FrameInfo, Preferences
 from lz4_tpu_torch.frame.reader import FrameDecompressor, decompress_frame
-from lz4_tpu_torch.frame.writer import compress_frame
+from lz4_tpu_torch.frame.writer import (compress_frame, compress_legacy_frame,
+                                        write_skippable_frame)
 from lz4_tpu_torch.parallel import engine as eng
 from lz4_tpu_torch.parallel.engine import TorchBackend
-from lz4_tpu_torch.probes import (gather_probe, host_frame, lane_probe,
-                                  walk_probe)
+from lz4_tpu_torch.probes import (fullbench, gather_probe, host_frame,
+                                  lane_probe, torture, walk_probe)
 from lz4_tpu_torch.probes._common import measure
 from lz4_tpu_torch.probes._timing import card as card_line
 from lz4_tpu_torch.probes._timing import (cuda_ms, cuda_ms_back_to_back,
-                                          cuda_ms_flushed)
+                                          cuda_ms_flushed, timed_runs)
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
                                          gen_slot_words, gen_text)
 from lz4_tpu_torch.utils.realcorpus import describe, real_corpus
@@ -799,8 +810,10 @@ def phase_max_dist(be):
 
 
 def phase_frames(be):
-    """16 MB frames through the sequential frame layer."""
+    """16 MB frames through the sequential frame layer; returns them by
+    kind ("linked", "independent")."""
     data = real_corpus(CORPUS)[: 16 << 20]
+    written = {}
     for bsid, independent in ((7, False), (4, True)):
         before = read_launches()
         prefs = Preferences(frame_info=FrameInfo(
@@ -823,6 +836,7 @@ def phase_frames(be):
             raise AssertionError(f"frame path took a wrong route: {before} "
                                  f"-> {after}")
         kind = "independent" if independent else "linked"
+        written[kind] = frame
         log(f"frame ok: 16 MB, {kind} "
             f"{FrameInfo(block_size_id=bsid).block_max_size >> 10} KB "
             f"blocks, ratio {len(data) / len(frame):.4f}, compress "
@@ -862,12 +876,13 @@ def phase_frames(be):
             if e or err.any() or int(olen[0]) != 4 << 20:
                 raise AssertionError("B2 on a 4 MB block differs from plain")
             log("B2 == plain on a 4 MB block (cap_out 4 MB)")
+    return written
 
 
 def phase_batch_frames(be):
     """128 streams x 384 KiB through the batch frame surfaces, linked and
     independent; the linked frames also through the sequential decoder
-    (B2)."""
+    (B2). Returns the linked frames."""
     data = real_corpus(CORPUS)
     size = 384 << 10
     datas = [data[i: i + size] for i in range(0, 128 * size, size)]
@@ -900,12 +915,14 @@ def phase_batch_frames(be):
                                      "failed")
             log(f"the same linked frames through decompress_frame: "
                 f"{t_s:.1f} ms ({mb / t_s * 1e3:.1f} MB/s)")
+            linked = frames
     launches = read_launches()
     for k in ("B2", "B3", "B4"):
         if launches[k] < 1:
             raise AssertionError(f"batch frame path skipped {k}: "
                                  f"{launches}")
     log(f"batch frame launches {launches}")
+    return linked
 
 
 def compare_hc(gpu, plain, what):
@@ -1489,7 +1506,8 @@ def phase_sharded():
 
 def phase_cli():
     """The CLI in process on a 16 MB file: -9 -B4 (B5), -d, -t, and a
-    default -1 round trip; the files are compared byte for byte."""
+    default -1 round trip; the files are compared byte for byte. Returns
+    the -9 -B4 file's bytes."""
     data = real_corpus(CORPUS)[: 16 << 20]
     with tempfile.TemporaryDirectory() as tdir:
         src = os.path.join(tdir, "corpus16.bin")
@@ -1509,6 +1527,9 @@ def phase_cli():
                 raise AssertionError(f"CLI {flags} exit codes {rc, rc_d, rc_t}")
             if not filecmp.cmp(src, out, shallow=False):
                 raise AssertionError(f"CLI {flags} round trip differs (cmp)")
+            if flags[0] == "-9":
+                with open(dst, "rb") as f:
+                    hc_file = f.read()
             want = "B5" if flags[0] == "-9" else "B1"
             if on_compress[want] < 1:
                 raise AssertionError(f"CLI {flags} compress skipped {want}: "
@@ -1518,6 +1539,7 @@ def phase_cli():
                 f"{len(data) / size:.4f}); compress {t_c:.1f} ms, -d "
                 f"{t_d:.1f} ms, -t {t_t:.1f} ms (host clock, whole calls); "
                 f"cmp ok; launches {read_launches()}")
+    return hc_file
 
 
 def phase_bench():
@@ -1749,6 +1771,156 @@ def phase_examples():
     return totals
 
 
+TORTURE_RUNS = (("kernels, wave", {"kernels": True, "wave": True}, 45.0),
+                ("sort/scan", {}, 15.0))
+#: the decode legs that must see mutated streams in the torture phase
+TORTURE_LEGS = ("B2", "wave", "sortscan")
+
+
+def phase_torture():
+    """The differential fuzzer (`probes/torture.py`) on the card for a
+    fixed time: `--kernels --wave` (B1, B2, the wave splitter with B3, the
+    linked ring, the batch frames with B4), then the default mode's
+    sort/scan legs. Raises on any disagreement (`torture.run` prints the
+    failing cycle's seed) and where a device decode leg saw no mutated
+    stream. Returns each kernel's launches over the phase (counts set to
+    0 just before it), probe kernels by source."""
+    oracle = torture.find_oracle()
+    reset_launches()
+    probe0 = {mod.SOURCE: mod.launches for mod in PROBES}
+    totals = Counter()
+    for name, kw, secs in TORTURE_RUNS:
+        opts = torture.Options(device="cuda", oracle=oracle, **kw)
+        before = read_launches()
+        t0 = time.perf_counter()
+        seed, c = torture.run(opts, secs)
+        t = time.perf_counter() - t0
+        totals.update(c)
+        on = {k: v - before[k] for k, v in read_launches().items()}
+        log(f"torture ({name}): master seed {seed}, {c['cycles']} cycles in "
+            f"{t:.1f} s ({c['cycles'] / t:.2f} a second), oracle: "
+            f"{'liblz4' if oracle else 'none'}; launches {on}")
+        for line in torture.summary(c):
+            log(f"torture ({name}): {line}")
+    missing = [leg for leg in TORTURE_LEGS if not totals[f"mutated.{leg}"]]
+    if missing or totals["disagreements"]:
+        raise AssertionError(f"torture: no mutated stream reached {missing}"
+                             f" ({totals['disagreements']} disagreements)")
+    launches = read_launches()
+    launches.update({src: mod.launches - probe0[src]
+                     for mod in PROBES for src in [mod.SOURCE]})
+    return launches
+
+
+#: the stages of the main path's shape (768 x 64 KB): level 2's encode
+#: split and the sort/scan decoder's
+FULLBENCH_MAIN = ("encode_mixed", "etables_mixed", "ejump_mixed",
+                  "eparse_mixed", "eemit_mixed", "decode_mixed",
+                  "dparse_mixed")
+
+
+def phase_fullbench():
+    """The per-stage micro-benchmark (`probes/fullbench.py`): every stage
+    at the tool's defaults (B 32), then level 2's encode split and the
+    sort/scan decoder's at the main path's 768 x 64 KB (`--level 2`),
+    0.5 s a stage; then the same splits on the main path's own batch
+    (the 48 MB real-file corpus: level 2's stream-less encode, and the
+    decode of the host C level-1 streams that the sort/scan decode phase
+    times). Launches no kernel."""
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = fullbench.run("cuda", B=32, NB=BLOCK, seconds=0.5,
+                         emit=lambda line: log(f"fullbench {line}"))
+    if [r["stage"] for r in rows] != fullbench.stage_names():
+        raise AssertionError("fullbench skipped stages")
+    big = fullbench.run("cuda", B=CORPUS // BLOCK, NB=BLOCK, seconds=0.5,
+                        stages=FULLBENCH_MAIN, level=2,
+                        emit=lambda line: log(f"fullbench 768 {line}"))
+    if [r["stage"] for r in big] != list(FULLBENCH_MAIN):
+        raise AssertionError("fullbench skipped a main-shape stage")
+    # the main path's batch: level 2 (8 candidates, lazy), and for the
+    # decoder the host C level-1 streams of the sort/scan decode phase
+    data = real_corpus(CORPUS)
+    blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
+    src, lens, _, _ = to_device_batch(*pack_blocks(blocks, cap=BLOCK),
+                                      device="cuda")
+    split = fullbench.EncodeSplit(src, lens, *fullbench.LEVELS[2])
+    comp = native.blockcodec.compress_batch(blocks)
+    cap_in = -(-max(len(c) for c in comp) // 4) * 4
+    cdev, clen, _, _ = to_device_batch(*pack_blocks(comp, cap=cap_in),
+                                       device="cuda")
+    real = {}
+    for name, fn in (
+            ("encode", lambda: encode_sortscan.encode_blocks(
+                src, lens, cap_n=BLOCK, has_dict=False,
+                n_cand=8, lazy=True)),
+            ("etables", split.tables), ("ejump", split.jump),
+            ("eemit", split.emit),
+            ("decode", lambda: decode_sortscan.decode_blocks(
+                cdev, clen, cap_out=BLOCK, has_dict=False)),
+            ("dparse", lambda: fullbench.dparse(cdev, clen, BLOCK))):
+        ms, host, _ = timed_runs(fn, 0.5)
+        real[name] = {"ms": ms, "host_ms": host}
+    del split
+    enc, dec = real["encode"]["ms"], real["decode"]["ms"]
+    log("fullbench real corpus (768 x 64 KB): " + ", ".join(
+        f"{k} {v['ms']:.3f} ms ({v['host_ms']:.3f} host)"
+        for k, v in real.items())
+        + f"; of level 2's encode: tables "
+        f"{real['etables']['ms'] / enc:.1%}, parse "
+        f"{real['ejump']['ms'] / enc:.1%}, emit "
+        f"{real['eemit']['ms'] / enc:.1%}; of the decode: parse "
+        f"{real['dparse']['ms'] / dec:.1%}")
+    if sum(read_launches().values()):
+        raise AssertionError("fullbench launched a kernel")
+    log(f"fullbench phase: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_checkframe(frames16, hc_file, batch):
+    """The port's frame validator (`lz4_tpu_torch.checkframe`, host only)
+    on frames the smoke wrote: the 16 MB linked and independent frames,
+    the CLI's -9 -B4 file, the 128 linked batch frames (one file), a
+    legacy and a skippable frame; three corrupted copies must fail."""
+    legacy = compress_legacy_frame(frames16["linked"][: 1 << 20],
+                                   backend=HostBackend())
+    files = {"linked16": frames16["linked"],
+             "independent16": frames16["independent"], "cli9B4": hc_file,
+             "batch128": b"".join(batch), "legacy": legacy,
+             "skippable": write_skippable_frame(b"smoke" * 20, 5)}
+    base = frames16["independent"]
+    bad = {"bad-magic": b"\x00" + base[1:],
+           "bad-header-checksum": base[:6] + bytes([base[6] ^ 0xFF])
+           + base[7:],
+           "truncated": base[: len(base) // 2]}
+    want = {"linked16": 4, "independent16": 256, "batch128": None}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tdir:
+        paths = {}
+        for name, blob in {**files, **bad}.items():
+            paths[name] = os.path.join(tdir, f"{name}.lz4")
+            with open(paths[name], "wb") as f:
+                f.write(blob)
+        for name in files:
+            frames = checkframe.check_file(paths[name])
+            if name == "batch128" and len(frames) != len(batch):
+                raise AssertionError(f"checkframe: {len(frames)} frames in "
+                                     f"the batch file")
+            if want.get(name) and frames[0]["blocks"] != want[name]:
+                raise AssertionError(f"checkframe {name}: {frames}")
+            log(f"checkframe {name}: OK, {len(frames)} frame(s), "
+                f"{sum(f.get('blocks', 0) for f in frames)} blocks")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_ok = checkframe.main([paths[n] for n in files])
+            rc_bad = [checkframe.main([paths[n]]) for n in bad]
+    if rc_ok != 0 or rc_bad != [1] * len(bad):
+        raise AssertionError(f"checkframe exit codes {rc_ok}, {rc_bad}: "
+                             f"{out.getvalue()}")
+    log(f"checkframe: {len(files)} valid files exit 0, {len(bad)} corrupted "
+        f"copies exit 1 ({', '.join(bad)}) in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host)")
+
+
 PROBES = (gather_probe, walk_probe, lane_probe)
 
 
@@ -1813,20 +1985,23 @@ def main() -> int:
     be = TorchBackend()
     m = phase_main_path(be)
     md = phase_max_dist(be)
-    phase_frames(be)
+    frames16 = phase_frames(be)
     big = phase_big_blocks(be)
-    phase_batch_frames(be)
+    batch = phase_batch_frames(be)
     hc = phase_hc_path(be)
     phase_level2(be)
     phase_sortscan_decode(be)
     phase_host_pool()
     phase_sharded()
-    phase_cli()
+    hc_file = phase_cli()
     bench_launches = phase_bench()
     phase_frame_pump()
     one_shot = phase_one_shot()
     phase_host_surfaces()
     example_launches = phase_examples()
+    torture_launches = phase_torture()
+    phase_fullbench()
+    phase_checkframe(frames16, hc_file, batch)
     probes = phase_probes()
 
     common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
@@ -1888,6 +2063,9 @@ def main() -> int:
         key = k["name"].split()[0]
         k["one_shot_launches"] = one_shot[key]
         k["example_launches"] = example_launches[key]
+        k["torture_launches"] = torture_launches[key]
+    for e in probes:
+        e["torture_launches"] = torture_launches[e["source"]]
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

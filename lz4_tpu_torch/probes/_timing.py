@@ -7,15 +7,19 @@
   other, best of `runs` (the host's launch time hidden, the L2 warm);
 - `cuda_ms_flushed`: one call queued behind a write of a 128 MB buffer,
   which evicts the 50 MB L2, and a spin on the card of some 100 us, which
-  lets the host queue the call before the card reaches it.
+  lets the host queue the call before the card reaches it;
+- `timed_runs`: `cuda_ms`'s device time beside the host's wall time of
+  the same calls, run for a time budget (`probes/fullbench.py`).
 
-Each warms up with one call first. Needs a CUDA device. `card()` is the
+Each warms up with one call first. Needs a CUDA device (`timed_runs`
+also runs on the CPU, where it gives the host time only). `card()` is the
 card's name and power limit as nvidia-smi gives them, for every line a
 probe prints.
 """
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -85,3 +89,37 @@ def cuda_ms_flushed(fn, runs=10, flush=None):
         b.synchronize()
         best = min(best, a.elapsed_time(b))
     return best
+
+
+def timed_runs(fn, seconds, min_runs=3, max_runs=40, cuda=True):
+    """(device ms, host ms, runs): fn() called after a sync until
+    `seconds` of host time have passed and at least `min_runs` calls
+    (at most `max_runs`), after a warm-up; the best device time between
+    CUDA events around each call (None where `cuda` is false) and the
+    best host time from before the call to the end of the sync after it.
+    """
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    fn()
+    sync()
+    best_dev = best_host = float("inf")
+    elapsed, runs = 0.0, 0
+    while (elapsed < seconds or runs < min_runs) and runs < max_runs:
+        sync()
+        if cuda:
+            a, b = _events()
+            a.record()
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            b.record()
+        sync()
+        dt = (time.perf_counter() - t0) * 1e3
+        if cuda:
+            best_dev = min(best_dev, a.elapsed_time(b))
+        best_host = min(best_host, dt)
+        elapsed += dt / 1e3
+        runs += 1
+    return (best_dev if cuda else None), best_host, runs

@@ -19,7 +19,8 @@ from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
 from lz4_tpu_torch.native import blockcodec, xxh
 from lz4_tpu_torch.parallel.engine import TorchBackend
-from lz4_tpu_torch.probes import gather_probe, lane_probe, walk_probe
+from lz4_tpu_torch.probes import (fullbench, gather_probe, lane_probe,
+                                  torture, walk_probe)
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
                                          gen_slot_words, gen_text)
 from lz4_tpu_torch.xxh32 import xxh32_batch
@@ -775,3 +776,34 @@ def test_probe_wrappers_raise_on_wrong_layout(cuda):
     with pytest.raises(ValueError, match="int32\\[8, 128\\]"):
         lane_probe.wave(torch.zeros((16, 128), dtype=torch.int32,
                                     device=cuda), 4)
+
+
+@pytest.mark.parametrize("argv", [["--kernels", "--wave"], []],
+                         ids=["kernels-wave", "sortscan"])
+def test_torture_short_run_on_card(cuda, capsys, argv):
+    """The fuzzer's device legs on the card for a few seconds: no
+    disagreement, and mutated streams reach the device decoder."""
+    import json
+    before = torture.read_launches()
+    assert torture.main(["--seconds", "5", "--seed", "7", *argv]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    c = res["torture"]["counters"]
+    leg = "B2" if argv else "sortscan"
+    assert c.get(f"mutated.{leg}", 0) > 0
+    assert c.get("disagreements", 0) == 0
+    if argv:
+        after = torture.read_launches()
+        assert after["B2"] > before["B2"] and after["B3"] > before["B3"]
+
+
+def test_fullbench_short_run_on_card(cuda, capsys):
+    import json
+    stages = ("noop,cumsum,sort2,scan_4k_u4,encode_mixed,ejump_mixed,"
+              "decode_mixed")
+    assert fullbench.main(["--b", "2", "--block", "4096", "--seconds", "0",
+                           "--level", "2", "--stages", stages]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[0])["card"]
+    rows = [json.loads(line) for line in lines[1:]]
+    assert [r["stage"] for r in rows] == stages.split(",")
+    assert all(r["ms"] > 0 and r["host_ms"] > 0 for r in rows)

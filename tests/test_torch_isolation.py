@@ -24,8 +24,8 @@ from lz4_tpu_torch.examples import (sharded_batch, simple_buffer,
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
 from lz4_tpu_torch.probes import (b1_split, b4_split, b5_split, decode_split,
-                                  gather_probe, lane_probe, level2_route,
-                                  walk_probe)
+                                  fullbench, gather_probe, lane_probe,
+                                  level2_route, torture, walk_probe)
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.xxh32_device import xxh32_blocks
 
@@ -110,6 +110,16 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     for example in (simple_buffer, turbo_wave_mode, sharded_batch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             example.main()
+    # the host tools: the fuzzer's device legs and the micro-benchmark
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torture.Options()
+    for argv in ([], ["--kernels", "--wave"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            torture.main(["--seconds", "0", *argv])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fullbench.main(["--seconds", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fullbench.run(None, B=1, NB=256, seconds=0)
 
 
 def test_native_is_checked_for_imports():
@@ -120,7 +130,8 @@ def test_native_is_checked_for_imports():
               "block.encode_sortscan", "probes.b4_split",
               "probes.level2_route", "probes.decode_split", "xxh64",
               "probes.walk_probe", "probes.gather_probe",
-              "probes.lane_probe",
+              "probes.lane_probe", "probes.torture", "probes.fullbench",
+              "checkframe",
               "examples", *(f"examples.{e}" for e in EXAMPLES)):
         assert f"lz4_tpu_torch.{m}" in _modules()
     assert str(PKG / "native" / "framewalk.c") in native.sources()
