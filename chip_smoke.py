@@ -58,7 +58,9 @@ launch count set to 0 just before it and read just after:
   `probes/gather_probe.py`, P2/P3 `probes/walk_probe.py`, P4
   `probes/lane_probe.py`): every body timed at the tool's sizes, and the
   output of its last timed launch held against its plain version on the
-  same inputs.
+  same inputs; the gathers also with the host's time a call, P1's lane,
+  row and flat behind an L2 flush, and their `torch.gather` /
+  `torch.take` on the same methods.
 
 Any failure raises. The last line is {"ok": true, "device": {...}}; the
 line before it is the card's name and power limit, and before that a
@@ -1924,6 +1926,20 @@ def phase_checkframe(frames16, hc_file, batch):
 PROBES = (gather_probe, walk_probe, lane_probe)
 
 
+def _probe_times(e: dict, prefix: str = "") -> str:
+    """A probe body's (or, with prefix "library_", its library call's)
+    ms after a sync, back to back, behind an L2 flush, and host and
+    device us a call, as far as it has them."""
+    text = (f"{e[prefix + 'ms']:.4f} ms ({e[prefix + 'ms_back_to_back']:.4f}"
+            f" back to back")
+    if prefix + "ms_l2_flushed" in e:
+        text += f", {e[prefix + 'ms_l2_flushed']:.4f} L2 flushed"
+    if prefix + "host_us" in e:
+        text += (f", host {e[prefix + 'host_us']:.2f} us and device "
+                 f"{e[prefix + 'device_us']:.2f} us a call")
+    return text + ")"
+
+
 def phase_probes():
     """The TPU probes of tools/ (P1-P4) on their Hopper kernels: every
     body timed at the tool's sizes, and the output of its last timed
@@ -1942,12 +1958,11 @@ def phase_probes():
             e = {"name": name, "route": "cuda", "source": mod.SOURCE,
                  "path": "probes", **r}
             entries.append(e)
-            log(f"probe {name}: {e['ms']:.4f} ms ("
-                f"{e['ms_back_to_back']:.4f} back to back, "
-                f"{e['launches']} launches)"
+            log(f"probe {name}: {_probe_times(e)} ({e['launches']} "
+                f"launches)"
                 + (f", {e['cycles_per_step']:.2f} SM cycles a step"
                    if "cycles_per_step" in e else "")
-                + (f", library {e['library_ms']:.4f} ms"
+                + (f"; library {_probe_times(e, 'library_')}"
                    if e["library_ms"] is not None else "")
                 + f"; plain {e['plain_ms']:.1f} ms, "
                 + ("== plain" if e["same_as_plain"] else "DIFFERS")

@@ -9,15 +9,23 @@ with other defines never shares a library with the kernel itself. A
 build writes a temporary file and renames it into place, so concurrent
 processes never load a half-written library. A failed build raises:
 there is no fallback.
+
+The probe gathers' libraries (`probe_lane`, `probe_gather`) are also
+CPython extension modules (`csrc/pyentry.h`): `module(name)` imports one
+as `lz4t_<name>`, whose `gather` checks, allocates and launches in one C
+call. Every source is built against the interpreter's headers.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import re
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 
@@ -26,7 +34,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", sysconfig.get_paths()["include"])
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,10 +59,11 @@ KERNELS = {
                                        _P)),
     "probe_gather": ("lz4t_probe_gather", (_P, _P, _P, _P, _P, _I, _I, _I,
                                            _I, _I, _P)),
-    "probe_lane": ("lz4t_probe_lane", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "probe_lane": ("lz4t_probe_lane", (_P, _P, _P, _I, _I, _I, _P)),
 }
 
 _LIBS: dict[tuple, ctypes.CDLL] = {}
+_MODULES: dict[str, object] = {}
 _LOCK = threading.Lock()
 
 
@@ -168,3 +178,19 @@ def load(name: str, defines=()):
             fn.restype = ctypes.c_int
             _LIBS[(name, defines)] = lib
         return getattr(lib, KERNELS[name][0])
+
+
+def module(name: str):
+    """Kernel `name`'s library imported as the CPython extension module
+    `lz4t_<name>` (building it if needed)."""
+    with _LOCK:
+        mod = _MODULES.get(name)
+        if mod is None:
+            build([name])
+            loader = importlib.machinery.ExtensionFileLoader(
+                f"lz4t_{name}", library_path(name))
+            spec = importlib.util.spec_from_loader(loader.name, loader)
+            mod = importlib.util.module_from_spec(spec)
+            loader.exec_module(mod)
+            _MODULES[name] = mod
+        return mod

@@ -10,12 +10,28 @@
 // On the TPU a (rows, 128) int32 array is 128 lanes; take_along_axis
 // along axis 0 gathers within each lane (tpu.dynamic_gather), along axis
 // 1 across the lanes of a row, and both wrap an index mod the gathered
-// extent. Every axis-0 gather here is lane-local, so the 128 lanes are
-// split over CTAs until a CTA's columns fit in shared memory: L = min(128,
-// 32768 / rows) lanes a CTA (128 KB at most: (512, 128) is 2 CTAs of 64
-// lanes, (4096, 128) 16 CTAs of 8). Each CTA also keeps its own copy of
-// the 4 KB src[:8, :], which the axis-1 and two-step gathers read across
-// lanes. One thread carries one lane: its 8 rows in registers.
+// extent.
+//
+// The gathers (0-2) spread their output over the card: one thread writes
+// 4 consecutive words of a row, rows * 128 / 4 / 256 CTAs of 256 threads
+// (1 at 8 rows, 64 at 512, 4096 at 32,768). A thread loads its 4 indices
+// with one 16-byte load, reads the 4 source words with independent
+// __ldg loads and stores its 4 results with one 16-byte store; where idx
+// or out is not 16-byte aligned (a view at an odd storage offset) the
+// launcher picks the instantiation with 4-byte loads and stores. They
+// launch through the library's Python entry (pyentry.h), which checks,
+// allocates the output and launches in one C call. Nothing is staged: src
+// is 4 KB to 16 MB (4-256 KB at the tool's 8-512 rows) and stays in L1/L2
+// after its first touch, so no CTA waits at a barrier.
+//
+// The loops (10-15) and the wave (20) measure latency floors of one
+// lane's dependent steps, so they keep a lane's column in shared memory:
+// the 128 lanes are split over CTAs until a CTA's columns fit, L =
+// min(128, 32768 / rows) lanes a CTA (128 KB at most: (512, 128) is 2
+// CTAs of 64 lanes, (4096, 128) 16 CTAs of 8). Each CTA also keeps its
+// own copy of the 4 KB src[:8, :], which the axis-1 and two-step steps
+// read across lanes. One thread carries one lane: its 8 rows in
+// registers.
 //
 // Variants (`variant`; rows a power of two, 8 for 1, 2, 10-13 and 20):
 //   0 a0:    out[r, c] = src[idx[r, c] mod rows, c];
@@ -35,10 +51,15 @@
 // in C++), floor mod of a power of two is a mask, and >> of an int32 is
 // arithmetic, as in jnp.
 //
-// What bounds them: latency. A loop step is a dependent shared-memory
+// What bounds them: the gathers move 12 bytes a word (idx and src in, out
+// out): 12 KB at 8 rows, 0.77 MB at 512, a few microseconds of launch and
+// one pass over the card at most, so the host's call dominates. The loops
+// and the wave are latency-bound: a step is a dependent shared-memory
 // load (or 512 of them for onehot) and some ALU; the bytes are 4 KB to
 // 2 MB read once and 4 KB written. stats[cta] = (SM cycles of thread 0's
 // loop, steps).
+
+#include "pyentry.h"  // first: Python.h precedes the system headers
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,6 +73,7 @@ constexpr int kShareWords = 32768;          // 128 KB of a CTA's columns
 constexpr int kS8Words = 8 * kLanes;
 constexpr int kMaxSmem = (kShareWords + kS8Words) * 4;
 constexpr int kLoadThreads = 256;
+constexpr int kGatherThreads = 256;
 constexpr int kWaveRows = 512;
 
 __host__ __device__ inline int lanes_per_cta(int rows) {
@@ -71,7 +93,7 @@ __device__ inline void load(const int32_t* src, uint32_t* s, uint32_t* s8,
   }
 }
 
-// out[r, c] = s8[(w >> 7) mod 8, w mod 128] (two_step at one lane)
+// s8[(w >> 7) mod 8, w mod 128] (two_step at one lane)
 __device__ __forceinline__ uint32_t two_step(const uint32_t* s8, uint32_t w) {
   return s8[((w >> 7) & 7) * kLanes + (w & (kLanes - 1))];
 }
@@ -80,29 +102,54 @@ __device__ __forceinline__ uint32_t asr(uint32_t x, int sh) {
   return static_cast<uint32_t>(static_cast<int32_t>(x) >> sh);
 }
 
-__global__ void __launch_bounds__(kLoadThreads)
+// words [e, e + 4) of p, with one 16-byte access (kVec) or four
+template <bool kVec>
+__device__ __forceinline__ void load4(const int32_t* p, int32_t (&v)[4]) {
+  if (kVec) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __ldg(p + k);
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(int32_t* p, const int32_t (&v)[4]) {
+  if (kVec) {
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[k] = v[k];
+  }
+}
+
+// Variant V (0 a0, 1 a1, 2 2step) over 4 consecutive words a thread.
+template <int V, bool kVec>
+__global__ void __launch_bounds__(kGatherThreads)
     gather_kernel(const int32_t* __restrict__ src,
                   const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-                  int rows, int variant) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* s8 = smem;
-  uint32_t* s = smem + kS8Words;
-  const int L = lanes_per_cta(rows);
-  const int lane0 = blockIdx.x * L;
-  load(src, s, s8, rows, L, lane0);
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * L; i += blockDim.x) {
-    const int r = i / L, cl = i % L, c = lane0 + cl;
-    uint32_t v;
-    if (variant == 0) {
-      v = s[(idx[r * kLanes + c] & (rows - 1)) * L + cl];
-    } else if (variant == 1) {
-      v = s8[r * kLanes + (idx[r * kLanes + c] & (kLanes - 1))];
-    } else {
-      v = two_step(s8, static_cast<uint32_t>(idx[c]));
-    }
-    out[r * kLanes + c] = static_cast<int32_t>(v);
+                  int rows) {
+  const int g = blockIdx.x * kGatherThreads + threadIdx.x;
+  if (g >= rows * (kLanes / 4)) return;
+  const int e = 4 * g;                          // the thread's first word
+  const int r = e / kLanes, c = e % kLanes;
+  int32_t w[4];
+  load4<kVec>(idx + (V == 2 ? c : e), w);       // 2step: row 0's words
+  int32_t v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t u = static_cast<uint32_t>(w[k]);
+    int at;
+    if (V == 0)
+      at = static_cast<int>(u & (rows - 1)) * kLanes + c + k;
+    else if (V == 1)
+      at = r * kLanes + static_cast<int>(u & (kLanes - 1));
+    else
+      at = static_cast<int>(((u >> 7) & 7) * kLanes + (u & (kLanes - 1)));
+    v[k] = __ldg(src + at);
   }
+  store4<kVec>(out + e, v);
 }
 
 template <int V>
@@ -217,7 +264,7 @@ __global__ void __launch_bounds__(kLoadThreads)
   }
 }
 
-std::atomic<unsigned long long> g_raised[8];
+std::atomic<unsigned long long> g_raised[7];
 
 // each kernel (and instantiation) raises its own limit once a device
 template <typename K>
@@ -226,14 +273,55 @@ int raise_smem(K kernel, int slot) {
       lz4t::allow_smem(kernel, kMaxSmem, g_raised[slot]));
 }
 
+template <int V>
+void launch_gather(const int32_t* src, const int32_t* idx, int32_t* out,
+                   int rows, cudaStream_t st) {
+  const int grid = rows * (kLanes / 4) / kGatherThreads;
+  const bool vec = !((reinterpret_cast<uintptr_t>(idx) |
+                      reinterpret_cast<uintptr_t>(out)) & 15);
+  if (vec)
+    gather_kernel<V, true><<<grid, kGatherThreads, 0, st>>>(src, idx, out,
+                                                             rows);
+  else
+    gather_kernel<V, false><<<grid, kGatherThreads, 0, st>>>(src, idx, out,
+                                                              rows);
+}
+
+// The Python entry's gathers (pyentry.h): src and idx int32[rows, 128],
+// rows a power of two in [8, 32768], 8 for a1 and 2step.
+bool gather_valid(const long long* shape, int ndim, int code) {
+  const long long rows = shape[0];
+  return ndim == 2 && shape[1] == kLanes && rows >= 8 &&
+         rows <= kShareWords && !(rows & (rows - 1)) && code >= 0 &&
+         code <= 2 && (code == 0 || rows == 8);
+}
+
+int gather_launch(const long long* shape, int, const void* src,
+                  const void* idx, void* out, int code, cudaStream_t st) {
+  const auto* s = static_cast<const int32_t*>(src);
+  const auto* ix = static_cast<const int32_t*>(idx);
+  auto* o = static_cast<int32_t*>(out);
+  const int rows = static_cast<int>(shape[0]);
+  if (code == 0)
+    launch_gather<0>(s, ix, o, rows, st);
+  else if (code == 1)
+    launch_gather<1>(s, ix, o, rows, st);
+  else
+    launch_gather<2>(s, ix, o, rows, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// src: int32[rows, 128]; idx: int32[rows, 128] (variants 0-2); out:
-// int32[rows, 128] (0-2) or int32[8, 128] (10-15, 20); stats:
-// int64[ctas, 2] (10-15, 20; ctas = 128 / lanes_per_cta(rows), 512 rows
-// for 20). Returns the launch's cudaError_t (0 on success).
-extern "C" int lz4t_probe_lane(const void* src, const void* idx, void* out,
-                               void* stats, int rows, int variant, int nit,
+LZ4T_GATHER_MODULE(lz4t_probe_lane, gather_valid, gather_launch,
+                   "probe_lane gather")
+
+// The loops (10-15) and the wave (20); the gathers launch through the
+// Python entry above. src: int32[rows, 128]; out: int32[8, 128]; stats:
+// int64[ctas, 2] (ctas = 128 / lanes_per_cta(rows), 512 rows for 20).
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int lz4t_probe_lane(const void* src, void* out, void* stats,
+                               int rows, int variant, int nit,
                                void* stream) {
   if (rows < 8 || rows > kShareWords || (rows & (rows - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -250,25 +338,18 @@ extern "C" int lz4t_probe_lane(const void* src, const void* idx, void* out,
   switch (variant) {
 #define LZ4T_LOOP(V, SLOT)                                                  \
   case V:                                                                  \
-    if ((e = raise_smem(loop_kernel<V>, SLOT))) return e;      \
+    if ((e = raise_smem(loop_kernel<V>, SLOT))) return e;                  \
     loop_kernel<V><<<grid, threads, smem, st>>>(s, o, stt, rows, nit);     \
     break;
-    LZ4T_LOOP(10, 1)
-    LZ4T_LOOP(11, 2)
-    LZ4T_LOOP(12, 3)
-    LZ4T_LOOP(13, 4)
-    LZ4T_LOOP(14, 5)
-    LZ4T_LOOP(15, 6)
+    LZ4T_LOOP(10, 0)
+    LZ4T_LOOP(11, 1)
+    LZ4T_LOOP(12, 2)
+    LZ4T_LOOP(13, 3)
+    LZ4T_LOOP(14, 4)
+    LZ4T_LOOP(15, 5)
 #undef LZ4T_LOOP
-    case 0:
-    case 1:
-    case 2:
-      if ((e = raise_smem(gather_kernel, 0))) return e;
-      gather_kernel<<<grid, threads, smem, st>>>(
-          s, static_cast<const int32_t*>(idx), o, rows, variant);
-      break;
     case 20:
-      if ((e = raise_smem(wave_kernel, 7))) return e;
+      if ((e = raise_smem(wave_kernel, 6))) return e;
       wave_kernel<<<grid, threads, smem, st>>>(s, o, stt, nit);
       break;
     default:

@@ -1,5 +1,5 @@
 // Raising a kernel's dynamic shared-memory limit past the 48 KB default
-// (xxh32.cu, probe_walk.cu, probe_lane.cu).
+// (xxh32.cu, probe_walk.cu, probe_lane.cu, probe_gather.cu).
 #pragma once
 
 #include <atomic>

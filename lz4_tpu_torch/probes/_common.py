@@ -59,19 +59,38 @@ def check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(fn, dev: torch.device, *args) -> int:
+    """fn(*args, stream): a C entry point on `dev`'s current stream (its
+    raw handle), inside a device guard only where `dev` is not the
+    current device. Returns fn's result (a cudaError_t)."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
 
 
-def _card_times(call, runs: int = 5) -> dict:
+def _card_times(call, runs: int = 5, host: bool = False,
+                flushed: bool = False, prefix: str = "") -> dict:
     """`ms`: one call after a sync, best of `runs` (the `ms` of every
     kernel in `chip_smoke.py`'s kernels line, the host's launch time
     included); `ms_back_to_back`: the mean of calls queued behind each
-    other (20 a run, 3 for calls of 1 ms or more), best of 2."""
-    from lz4_tpu_torch.probes._timing import cuda_ms, cuda_ms_back_to_back
+    other (20 a run, 3 for calls of 1 ms or more), best of `runs`; with
+    `host`, `host_us` and `device_us`: the host's microseconds a call and
+    the card's in its kernels (`_timing.host_us`, `_timing.device_us`);
+    with `flushed`, `ms_l2_flushed`: one call behind an L2 flush, best of
+    `runs`. Each key is prefixed with `prefix`."""
+    from lz4_tpu_torch.probes._timing import (cuda_ms, cuda_ms_back_to_back,
+                                              cuda_ms_flushed, device_us,
+                                              host_us)
     ms = cuda_ms(call, runs=runs)
-    return {"ms": ms, "ms_back_to_back": cuda_ms_back_to_back(
-        call, reps=20 if ms < 1 else 3, runs=2)}
+    r = {"ms": ms, "ms_back_to_back": cuda_ms_back_to_back(
+        call, reps=20 if ms < 1 else 3, runs=runs)}
+    if host:
+        r["host_us"] = host_us(call)
+        r["device_us"] = device_us(call)
+    if flushed:
+        r["ms_l2_flushed"] = cuda_ms_flushed(call, runs=runs)
+    return {prefix + k: v for k, v in r.items()}
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0) -> tuple[float, str]:
@@ -92,7 +111,10 @@ class Body:
     version. `report(stats, ms)` gives what the body's stats and time say
     (steps, ns and SM cycles a step) and its `bound_ms` and `bound_by`.
     `library`, where there is one, is a PyTorch call of the same function
-    on the same inputs, timed beside it."""
+    on the same inputs, timed beside it on the same methods. `host` adds
+    the host's and the card's time a call (`host_us`, `device_us`),
+    `flushed` the time behind an L2 flush (`ms_l2_flushed`), to the body
+    and its library call."""
     name: str
     replaces: str
     run: Callable[[], tuple]
@@ -100,6 +122,8 @@ class Body:
     report: Callable[[Any, float], dict]
     count: dict = field(default_factory=dict)
     library: Callable[[], Any] | None = None
+    host: bool = False
+    flushed: bool = False
 
 
 def _plain_timed(plain, runs: int):
@@ -126,22 +150,42 @@ def _max_abs_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
+def _best(a: dict, b: dict) -> dict:
+    return {k: min(v, b[k]) for k, v in a.items()}
+
+
 def measure(bodies, launched: Callable[[], int], runs: int = 5) -> dict:
-    """Each body timed on the card (`ms`, one launch after a sync, best of
-    `runs`, and `ms_back_to_back`), the launches that took (`launched()`
-    is the wrapper's count) and the output of its last timed launch held
-    against the plain version on the same inputs (`same_as_plain`: exact
-    equality; `max_abs_err`; `plain_ms`), with `library_ms` where there is
-    a library call and the body's report. Keyed by body name."""
-    from lz4_tpu_torch.probes._timing import cuda_ms
+    """Each body timed on the card (`_card_times`: `ms`, one launch after a
+    sync, best of `runs`, `ms_back_to_back`, and `host_us`, `device_us`
+    and `ms_l2_flushed` where the body asks), the launches that took
+    (`launched()` is the wrapper's count) and the output of its last timed
+    launch held against the plain version on the same inputs
+    (`same_as_plain`: exact equality; `max_abs_err`; `plain_ms`), with
+    the library call, where there is one, timed on the same methods
+    through the same harness (`library_ms`, `library_ms_back_to_back`,
+    ...; `library_ms` None without one) and the body's report. A body
+    with a library call is timed in turns with it, kernel, library,
+    kernel, library, and each keeps the best of its two passes. Keyed by
+    body name."""
     res = {}
     for body in bodies:
-        last = []
+        last, lib_last = [], []
 
         def call(body=body, last=last):
             last[:] = [body.run()]
+
+        def lib_call(body=body, last=lib_last):
+            last[:] = [body.library()]
         before = launched()
-        r = _card_times(call, runs)
+        r = _card_times(call, runs, body.host, body.flushed)
+        lib = {"library_ms": None}
+        if body.library:
+            # kernel, library, kernel, library: the best of each
+            lib = _card_times(lib_call, runs, body.host, body.flushed,
+                              "library_")
+            r = _best(r, _card_times(call, runs, body.host, body.flushed))
+            lib = _best(lib, _card_times(lib_call, runs, body.host,
+                                         body.flushed, "library_"))
         r["launches"] = launched() - before
         outs, stats = last[0]
         want, plain_ms = _plain_timed(body.plain, runs)
@@ -149,10 +193,8 @@ def measure(bodies, launched: Callable[[], int], runs: int = 5) -> dict:
             g.shape == w.shape and torch.equal(g, w)
             for g, w in zip(outs, want))
         r.update(same_as_plain=same, max_abs_err=_max_abs_err(outs, want),
-                 plain_ms=plain_ms, library_ms=(
-                     cuda_ms(body.library, runs) if body.library else None),
-                 **body.report(stats, r["ms"]), count=body.count,
-                 replaces=body.replaces)
+                 plain_ms=plain_ms, **lib, **body.report(stats, r["ms"]),
+                 count=body.count, replaces=body.replaces)
         res[body.name] = r
     return res
 

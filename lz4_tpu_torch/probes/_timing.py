@@ -8,6 +8,10 @@
 - `cuda_ms_flushed`: one call queued behind a write of a 128 MB buffer,
   which evicts the 50 MB L2, and a spin on the card of some 100 us, which
   lets the host queue the call before the card reaches it;
+- `host_us`: the host's microseconds a call, over calls queued without
+  a sync (what `cuda_ms` holds of the host's launch path);
+- `device_us`: the card's microseconds a call in the kernels it
+  launches (`torch.profiler`), the other part of `cuda_ms`;
 - `timed_runs`: `cuda_ms`'s device time beside the host's wall time of
   the same calls, run for a time budget (`probes/fullbench.py`).
 
@@ -89,6 +93,40 @@ def cuda_ms_flushed(fn, runs=10, flush=None):
         b.synchronize()
         best = min(best, a.elapsed_time(b))
     return best
+
+
+def host_us(fn, calls=200, runs=3):
+    """Best of `runs` host times a call, in microseconds, after a warm-up:
+    `calls` calls of fn() queued without a sync, the clock stopped before
+    the sync that follows them."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        best = min(best, dt / calls * 1e6)
+    return best
+
+
+def device_us(fn, calls=20):
+    """Microseconds a call that the card spends in the kernels fn()
+    launches: the self device time of every event torch.profiler records
+    (CUDA activity) over `calls` calls, after a warm-up, over `calls`."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0.0)
+                for e in prof.key_averages())
+    return total / calls
 
 
 def timed_runs(fn, seconds, min_runs=3, max_runs=40, cuda=True):

@@ -7,17 +7,28 @@ Ports `tools/pallas_probe.py` (`k_lane`, `k_flat`, `k_row`, `k_chase`,
 `k_hops`) on its data: B = 32 blocks of int32 (R, C) = (512, 128), seed
 3, drawn in the tool's order. The bodies (`gather`'s):
 
-- `lane`: out[r, c] = x[r, idx[r, c] mod C], from shared memory (a CTA
-  takes whole rows);
-- `row`: out[r, c] = x[idx[r, c] mod R, c], from shared memory (a CTA
-  takes whole columns);
-- `flat`: out = x.flat[idx mod N], N = R * C, from global memory through
-  L1/L2;
+- `lane`: out[r, c] = x[r, idx[r, c] mod C];
+- `row`: out[r, c] = x[idx[r, c] mod R, c];
+- `flat`: out = x.flat[idx mod N], N = R * C;
 - `chase`: 8 rounds of ptr = where(ptr >= 0, ptr[clip(ptr, 0, N - 1)],
   ptr) over the whole block (one CTA a block, global memory);
 - `hops`: 8192 dependent steps a block of out[k] = cur; cur = nm[min(cur
   + ml[cur], N - 1)], one thread a block (global memory), out int32[B,
   8192 / C, C].
+
+lane, row and flat stream: a thread takes 4 consecutive words (16-byte
+loads of the indices, 16-byte stores; 4-byte ones where a view's start is
+not 16-byte aligned). lane stages a warp's 128 words of x in the warp's
+own shared memory where C <= 128 (whole rows, no CTA barrier); row copies
+a strip of 32 columns over all R rows into a CTA's shared memory while it
+loads the strip's indices, where the strip fits in 64 KB; flat, longer
+lane rows and taller row strips read their 4 source words from global
+memory through L1/L2, the loads issued together. They launch through the
+library's CPython entry (`csrc/pyentry.h`): one C call checks the
+inputs, allocates the output with `torch.empty_like` and launches; where
+a check fails or the tensors sit off the current device it returns None
+and `gather` runs its Python checks (which raise) or enters the device.
+chase and hops launch through ctypes with their scratch and stats.
 
 Indices wrap mod the gathered extent, as the TPU's gathers do (R and C
 powers of two). Each body runs at the tool's sizes, and the output of its
@@ -27,9 +38,14 @@ step). It reports `ms` (`probes/_timing.cuda_ms`, one launch after a
 sync, which for these short kernels holds the host's launch time;
 `ms_back_to_back` beside it), for the chains `ns_per_step` and
 `cycles_per_step` (clock64 of a block's thread), and for lane, row and
-flat `library_ms`, one `torch.gather` of the same function on the same
-inputs (the TPU tool's `xla_flat_gather`). Prints one JSON line with the
-card's name and power limit. Needs one CUDA GPU and nvcc.
+flat the host's and the card's time a call (`host_us`, `device_us`), the
+time behind an L2 flush (`ms_l2_flushed`: their 25.2 MB fit the 50 MB
+L2) and one `torch.gather` of the same function on the same inputs (the
+TPU tool's `xla_flat_gather`) timed on the same methods (`library_ms`,
+`library_ms_back_to_back`, `library_host_us`, `library_device_us`,
+`library_ms_l2_flushed`).
+Prints one JSON line with the card's name and power limit. Needs one CUDA
+GPU and nvcc.
 
 On CPU tensors (or `device="cpu"`) `gather` runs the plain versions:
 `torch.gather` on the wrapped indices for lane, row and flat, the rounds
@@ -44,6 +60,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from lz4_tpu_torch import _build
 from lz4_tpu_torch.probes import _common as cm
 
 R, C = 512, 128
@@ -54,11 +71,23 @@ LIB = "probe_gather"
 SOURCE = "lz4_tpu_torch/csrc/probe_gather.cu"
 
 VARIANTS = {"lane": 0, "flat": 1, "row": 2, "chase": 3, "hops": 4}
+#: the bodies launched through the library's Python entry (`csrc/pyentry.h`)
+STREAMS = {"lane": 0, "flat": 1, "row": 2}
 REPLACES = {"lane": "tools/pallas_probe.py:78",
             "flat": "tools/pallas_probe.py:89",
             "row": "tools/pallas_probe.py:103",
             "chase": "tools/pallas_probe.py:115",
             "hops": "tools/pallas_probe.py:134"}
+
+#: the library's Python entry (`csrc/pyentry.h`), once loaded
+_entry = None
+
+
+def _load_entry():
+    global _entry
+    _entry = _build.module(LIB).gather
+    return _entry
+
 
 #: kernel launches made by `gather` (and nowhere else)
 launches = 0
@@ -91,6 +120,17 @@ def gather(body: str, a, b=None, *, steps: int | None = None, device=None):
     Returns (out, stats): out int32[B, R, C] (hops: int32[B, steps / C,
     C]); stats int64[B, 2] (SM cycles, steps of each block's chain) for
     chase and hops on the card, else None."""
+    global launches
+    code = STREAMS.get(body)
+    if (code is not None and type(a) is torch.Tensor
+            and type(b) is torch.Tensor and a.is_cuda):
+        # lane, flat, row: the checks, the output and the launch in one C
+        # call; None where a check fails or the device is not the current
+        # one
+        out = (_entry or _load_entry())(a, b, code)
+        if out is not None:
+            launches += 1
+            return out, None
     if body not in VARIANTS:
         raise ValueError(f"body must be one of {sorted(VARIANTS)}")
     a = cm.as_input(a, device)
@@ -112,21 +152,27 @@ def gather(body: str, a, b=None, *, steps: int | None = None, device=None):
         raise ValueError("chase takes rounds >= 0")
     if dev.type == "cpu":
         return gather_plain(body, *ins, steps=steps), None
-    shape = (nb, steps // c, c) if body == "hops" else a.shape
-    out = torch.empty(shape, dtype=torch.int32, device=dev)
-    scratch = (torch.empty_like(a) if body == "chase"
-               else torch.empty(0, dtype=torch.int32, device=dev))
+    if code is not None:
+        with torch.cuda.device(dev):
+            out = (_entry or _load_entry())(a, ins[-1], code)
+        if out is None:
+            raise RuntimeError(f"probe_gather {body}: the kernel refused "
+                               f"{dev}")
+        launches += 1
+        return out, None
+    if body == "hops":
+        out = torch.empty((nb, steps // c, c), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty_like(a)
+    scratch = torch.empty_like(a) if body == "chase" else None
     stats = torch.empty((nb, 2), dtype=torch.int64, device=dev)
-    from lz4_tpu_torch import _build
-    fn = _build.load("probe_gather")
-    with torch.cuda.device(dev):
-        rc = fn(a.data_ptr(), ins[-1].data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), stats.data_ptr(), nb, r, c,
-                VARIANTS[body], steps, cm.stream_of(a))
+    rc = cm.launch(_build.load(LIB), dev, a.data_ptr(), ins[-1].data_ptr(),
+                   out.data_ptr(),
+                   None if scratch is None else scratch.data_ptr(),
+                   stats.data_ptr(), nb, r, c, VARIANTS[body], steps)
     cm.check_rc(rc, f"probe_gather {body}")
-    global launches
     launches += 1
-    return out, (stats if body in ("chase", "hops") else None)
+    return out, stats
 
 
 def gather_plain(body: str, a: torch.Tensor, b: torch.Tensor | None = None,
@@ -211,7 +257,8 @@ def bodies() -> list[cm.Body]:
         out.append(cm.Body(
             f"P1 k_{body}", REPLACES[body], run, plain, _chain_report(body),
             {"steps": STEPS} if body == "hops" else {"B": B, "R": R, "C": C},
-            partial(torch.gather, *lib[body]) if body in lib else None))
+            partial(torch.gather, *lib[body]) if body in lib else None,
+            host=body in lib, flushed=body in lib))
     return out
 
 

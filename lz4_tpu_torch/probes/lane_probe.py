@@ -21,16 +21,30 @@ Ports `tools/session_r4probe2.py` on its data (seed 7, int32 in [0,
   a row store into it. The TPU's history starts undefined; the port
   zero-fills it.
 
+The gathers spread their output over the card: a thread writes 4
+consecutive words of a row (16-byte index loads and stores, 4-byte ones
+where a view's start is not 16-byte aligned), reading its 4 source words
+from global memory through L1/L2, rows / 8 CTAs of 256 threads. They
+launch through the library's CPython entry (`csrc/pyentry.h`): one C call
+checks the inputs, allocates the output with `torch.empty_like` and
+launches; where a check fails or the tensors sit off the current device
+it returns None and `gather` runs its Python checks (which raise) or
+enters the device. The loops and the wave keep a lane's column in shared
+memory, as their latency floors need, and launch through ctypes.
+
 Each runs at the tool's counts (`--nit`, 65,536 as the tool's
 `LZ4_TPU_P42_NIT`), and the output of its last timed launch is held
 against its plain version on the same inputs (`probes/_common.measure`;
 the plain loops take a few torch ops a step, some seconds a body). It
 reports `ms` (`probes/_timing.cuda_ms`; `ms_back_to_back` beside it),
 `ns_per_step` (ms over the steps), `cycles_per_step` (clock64 of a CTA's
-first thread) and, for the gathers with indices in range, `library_ms`:
+first thread), for the gathers the host's and the card's time a call
+(`host_us`, `device_us`) and, for the gathers with indices in range,
 `torch.gather` (a0, a1) or `torch.take` (2step) of the same function on
-the same inputs. Prints one JSON line with the card's name and power limit.
-Needs one CUDA GPU and nvcc.
+the same inputs, timed on the same methods (`library_ms`,
+`library_ms_back_to_back`, `library_host_us`, `library_device_us`).
+Prints one JSON line with the card's name and power limit. Needs one CUDA
+GPU and nvcc.
 
 On CPU tensors (or `device="cpu"`) the functions run the plain versions:
 torch ops on the (8, 128) carry, a step at a time, in int64 wrapped to
@@ -45,6 +59,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from lz4_tpu_torch import _build
 from lz4_tpu_torch.probes import _common as cm
 
 LANES = 128
@@ -77,22 +92,29 @@ BODIES = {
     "t_wave": ("wave", None, 8, 8, f"{_FILE}:248"),
 }
 
+#: the library's Python entry (`csrc/pyentry.h`), once loaded
+_entry = None
+
+
+def _load_entry():
+    global _entry
+    _entry = _build.module(LIB).gather
+    return _entry
+
+
 #: kernel launches made by `gather`, `loop` and `wave` (and nowhere else)
 launches = 0
 
 
 def lanes_per_cta(rows: int) -> int:
-    """Lanes a CTA takes: its columns of `rows` rows fit in 128 KB."""
+    """Lanes a CTA of the loops and the wave takes: its columns of `rows`
+    rows fit in 128 KB."""
     return max(1, min(LANES, 32768 // rows))
 
 
-def _launch(variant: str, code: int, src, idx, out, stats, rows, nit):
-    from lz4_tpu_torch import _build
-    fn = _build.load("probe_lane")
-    with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), idx.data_ptr() if idx is not None else None,
-                out.data_ptr(), stats.data_ptr() if stats is not None
-                else None, rows, code, nit, cm.stream_of(src))
+def _launch(variant: str, code: int, dev, src, out, stats, rows, nit):
+    rc = cm.launch(_build.load(LIB), dev, src.data_ptr(), out.data_ptr(),
+                   stats.data_ptr(), rows, code, nit)
     cm.check_rc(rc, f"probe_lane {variant}")
     global launches
     launches += 1
@@ -112,7 +134,17 @@ def _check_src(src, min_rows=8):
 def gather(kind: str, src, idx, *, device=None) -> torch.Tensor:
     """`kern`'s gathers: int32[rows, 128] src and idx -> int32[rows, 128]
     (see the module docstring; a1 and 2step take 8 rows)."""
-    if kind not in GATHERS:
+    global launches
+    code = GATHERS.get(kind)
+    if (code is not None and type(src) is torch.Tensor
+            and type(idx) is torch.Tensor and src.is_cuda):
+        # the checks, the output and the launch in one C call; None where
+        # a check fails or the device is not the current one
+        out = (_entry or _load_entry())(src, idx, code)
+        if out is not None:
+            launches += 1
+            return out
+    if code is None:
         raise ValueError(f"kind must be one of {sorted(GATHERS)}")
     src, idx = cm.as_input(src, device), cm.as_input(idx, device)
     dev = cm.same_device(src, idx)
@@ -122,8 +154,11 @@ def gather(kind: str, src, idx, *, device=None) -> torch.Tensor:
                          "8 rows")
     if dev.type == "cpu":
         return gather_plain(kind, src, idx)
-    out = torch.empty_like(src)
-    _launch(kind, GATHERS[kind], src, idx, out, None, rows, 0)
+    with torch.cuda.device(dev):
+        out = (_entry or _load_entry())(src, idx, code)
+    if out is None:
+        raise RuntimeError(f"probe_lane {kind}: the kernel refused {dev}")
+    launches += 1
     return out
 
 
@@ -158,7 +193,7 @@ def loop(body: str, src, nit: int, *, device=None):
     out = torch.empty((8, LANES), dtype=torch.int32, device=dev)
     stats = torch.empty((LANES // lanes_per_cta(rows), 2),
                         dtype=torch.int64, device=dev)
-    _launch(f"loop_{body}", LOOPS[body], src, None, out, stats, rows, nit)
+    _launch(f"loop_{body}", LOOPS[body], dev, src, out, stats, rows, nit)
     return out, stats
 
 
@@ -212,7 +247,7 @@ def wave(src, nw: int, *, device=None):
     out = torch.empty((8, LANES), dtype=torch.int32, device=dev)
     stats = torch.empty((LANES // lanes_per_cta(WAVE_ROWS), 2),
                         dtype=torch.int64, device=dev)
-    _launch("wave", WAVE, src, None, out, stats, 8, nw)
+    _launch("wave", WAVE, dev, src, out, stats, 8, nw)
     return out, stats
 
 
@@ -328,7 +363,7 @@ def bodies(nit: int = NIT) -> list[cm.Body]:
             count = {"steps": nit // frac}
         out.append(cm.Body(f"P4 {body}", replaces, run, plain,
                            _report(body, nit), count,
-                           _library(body, src, idx)))
+                           _library(body, src, idx), host=fn == "gather"))
     return out
 
 

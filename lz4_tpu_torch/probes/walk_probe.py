@@ -121,10 +121,8 @@ def walk(words, ns, variant: str, *, grid: int | None = None,
     stats = torch.empty((grid, 2), dtype=torch.int64, device=dev)
     from lz4_tpu_torch import _build
     fn = _build.load("probe_walk")
-    with torch.cuda.device(dev):
-        rc = fn(words.data_ptr(), ns.data_ptr(), out.data_ptr(),
-                stats.data_ptr(), B, W, grid, WALKS[variant], steps,
-                cm.stream_of(words))
+    rc = cm.launch(fn, dev, words.data_ptr(), ns.data_ptr(), out.data_ptr(),
+                   stats.data_ptr(), B, W, grid, WALKS[variant], steps)
     cm.check_rc(rc, f"probe_walk {variant}")
     launches += 1
     return out, stats[:, 1], stats[:, 0]
@@ -199,9 +197,8 @@ def burn(x, mode: str, *, steps: int = BURN_STEPS, grid: int = BURN_GRID,
     stats = torch.empty((ctas, 2), dtype=torch.int64, device=dev)
     from lz4_tpu_torch import _build
     fn = _build.load("probe_walk")
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), None, out.data_ptr(), stats.data_ptr(), 0, 0,
-                grid, BURNS[mode], steps, cm.stream_of(x))
+    rc = cm.launch(fn, dev, x.data_ptr(), None, out.data_ptr(),
+                   stats.data_ptr(), 0, 0, grid, BURNS[mode], steps)
     cm.check_rc(rc, f"probe_walk burn {mode}")
     launches += 1
     return out, stats[:, 0]

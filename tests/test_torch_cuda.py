@@ -742,6 +742,113 @@ def test_lane_probe_full_int32_range(cuda):
                                          device="cpu"))
 
 
+INDEX_KINDS = ("random", "out-of-range", "negative", "full")
+P4_SPLITS = [("a0", r) for r in (8, 16, 64, 512, 4096, 32768)] + [
+    ("a1", 8), ("2step", 8)]
+P1_SHAPES = [(1, 1, 1), (3, 8, 4), (2, 64, 128), (5, 512, 128),
+             (1, 16, 8192), (1, 8192, 16)]
+
+
+def _indices(kind, extent, shape, seed):
+    rng = np.random.default_rng(seed)
+    lo, hi = {"random": (0, extent), "out-of-range": (extent, 4 * extent),
+              "negative": (-3 * extent, 0),
+              "full": (-2**31, 2**31)}[kind]
+    return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+
+def _on_card(a, cuda, offset):
+    """a on the card; with offset 1, a view one word past a 16-byte
+    aligned start (the kernels' 4-byte path)."""
+    t = torch.from_numpy(a)
+    if not offset:
+        return t.to(cuda)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+@pytest.mark.parametrize("ikind", INDEX_KINDS)
+@pytest.mark.parametrize("kind,rows", P4_SPLITS,
+                         ids=[f"{k}-{r}" for k, r in P4_SPLITS])
+def test_p4_gather_matches_plain_at_split_shapes(cuda, kind, rows, ikind,
+                                                 offset):
+    rng = np.random.default_rng(rows)
+    src = rng.integers(-2**31, 2**31, (rows, 128), dtype=np.int64).astype(
+        np.int32)
+    extent = {"a0": rows, "a1": 128, "2step": 1024}[kind]
+    idx = _indices(ikind, extent, (rows, 128), rows + 1)
+    got = lane_probe.gather(kind, _on_card(src, cuda, offset),
+                            _on_card(idx, cuda, offset))
+    want = lane_probe.gather(kind, src, idx, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+@pytest.mark.parametrize("ikind", INDEX_KINDS)
+@pytest.mark.parametrize("shape", P1_SHAPES,
+                         ids=["x".join(map(str, s)) for s in P1_SHAPES])
+@pytest.mark.parametrize("body", ["lane", "row", "flat"])
+def test_p1_gather_matches_plain_at_split_shapes(cuda, body, shape, ikind,
+                                                 offset):
+    b, r, c = shape
+    rng = np.random.default_rng(r * c + b)
+    x = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    extent = {"lane": c, "row": r, "flat": r * c}[body]
+    idx = _indices(ikind, extent, shape, b + r + c)
+    got, stats = gather_probe.gather(body, _on_card(x, cuda, offset),
+                                     _on_card(idx, cuda, offset))
+    want, _ = gather_probe.gather(body, x, idx, device="cpu")
+    assert stats is None and torch.equal(got.cpu(), want)
+
+
+def test_gather_wrappers_launch_once_and_allocate_one_output(cuda):
+    """Each gather call: one launch, one allocation (its output)."""
+    x = torch.zeros((2, 64, 128), dtype=torch.int32, device=cuda)
+    src = torch.zeros((64, 128), dtype=torch.int32, device=cuda)
+    s8 = src[:8].contiguous()
+    calls = [(gather_probe, lambda b=b: gather_probe.gather(b, x, x))
+             for b in ("lane", "row", "flat")]
+    calls += [(lane_probe, lambda: lane_probe.gather("a0", src, src)),
+              (lane_probe, lambda: lane_probe.gather("a1", s8, s8)),
+              (lane_probe, lambda: lane_probe.gather("2step", s8, s8))]
+    for mod, call in calls:
+        call()
+        torch.cuda.synchronize()
+        before = mod.launches
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        call()
+        assert mod.launches == before + 1
+        assert (torch.cuda.memory_stats()["allocation.all.allocated"]
+                == allocs + 1)
+    torch.cuda.synchronize()
+
+
+def test_gather_entry_leaves_bad_inputs_to_the_checks(cuda):
+    """The C entry returns None on what it does not take; the wrappers'
+    Python checks then raise as before, and a mixed CUDA / numpy call is
+    moved to the card and launched."""
+    x = torch.zeros((1, 64, 128), dtype=torch.int32, device=cuda)
+    src = torch.zeros((16, 128), dtype=torch.int32, device=cuda)
+    assert gather_probe._load_entry()(x, x.to(torch.int64), 0) is None
+    assert lane_probe._load_entry()(src, src, 1) is None    # a1: 8 rows
+    with pytest.raises(TypeError, match="int32"):
+        gather_probe.gather("lane", x, x.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_probe.gather("row", x, x.transpose(1, 2).contiguous()
+                            .transpose(1, 2))
+    with pytest.raises(ValueError, match="8 rows"):
+        lane_probe.gather("a1", src, src)
+    with pytest.raises(ValueError, match="power of two"):
+        lane_probe.gather("a0", src[:12].contiguous(), src[:12].contiguous())
+    idx = np.arange(64 * 128, dtype=np.int32).reshape(1, 64, 128)
+    got, _ = gather_probe.gather("flat", x + 5, idx)
+    assert got.is_cuda and bool((got == 5).all())
+
+
 def test_probe_wrappers_raise_on_wrong_layout(cuda):
     words = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
     ns = torch.zeros(2, dtype=torch.int32, device=cuda)

@@ -684,3 +684,175 @@ def test_wave_negative_t_floor_mod_and_shift_wrap():
 def test_probe_wrappers_check_their_arguments(fn, args):
     with pytest.raises((TypeError, ValueError), match=args):
         fn()
+
+
+# ------------------------- the redesigned gathers' work split (P4 0-2, P1 0-2)
+#
+# A model of which thread writes which output word and which source word
+# it reads, mirroring the launchers' grid arithmetic and the kernels' index
+# math (`csrc/probe_lane.cu`: launch_gather, gather_kernel;
+# `csrc/probe_gather.cu`: lane_kernel, direct_kernel, source_of and the
+# launcher's switch), vectorised over threads. The 16-byte and the 4-byte
+# instantiations split the work the same way. Each model is held to the
+# plain version, and every output word must be written exactly once.
+
+THREADS = 256                 # kGatherThreads, kThreads
+TILE = 128                    # kTile: a warp's words in lane_kernel
+MAX_GRID = 1 << 20            # kMaxGrid
+STRIP_COLS = 32               # kStripCols: row_kernel's strip width
+STRIP_WORDS = 16384           # kStripWords
+FLAT_THREADS = 512            # kFlatThreads
+PIECE_WORDS = 16384           # kPieceWords: flat_kernel's piece of x
+FLAT_WORDS = (1024, 65536)    # kFlatMinWords, kFlatMaxWords
+INDEX_KINDS = ("random", "out-of-range", "negative", "full")
+
+
+def _indices(kind, extent, shape, seed):
+    rng = np.random.default_rng(seed)
+    lo, hi = {"random": (0, extent), "out-of-range": (extent, 4 * extent),
+              "negative": (-3 * extent, 0),
+              "full": (-2**31, 2**31)}[kind]
+    return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+
+def _apply_split(written, read, src, idx_total):
+    """Output of a split: every written word exactly once, from src."""
+    counts = np.bincount(written, minlength=idx_total)
+    assert counts.shape == (idx_total,) and (counts == 1).all()
+    out = np.empty(idx_total, np.int32)
+    out[written] = src.reshape(-1)[read]
+    return out
+
+
+def p4_split(kind, rows, idx):
+    """(written, read) word indices of P4's gather over its grid: rows *
+    128 / 4 / 256 CTAs, thread g = cta * 256 + t takes words 4g..4g+3."""
+    grid = rows * (128 // 4) // THREADS
+    g = (np.arange(grid)[:, None] * THREADS
+         + np.arange(THREADS)[None, :]).reshape(-1)
+    g = g[g < rows * (128 // 4)]
+    e = 4 * g[:, None] + np.arange(4)[None, :]           # [threads, 4]
+    r, c = e // 128, e % 128
+    w = idx.reshape(-1)[c if kind == "2step" else e]
+    u = w.astype(np.int64) & 0xFFFFFFFF                   # uint32
+    if kind == "a0":
+        at = (u & (rows - 1)) * 128 + c
+    elif kind == "a1":
+        at = r * 128 + (u & 127)
+    else:
+        at = ((u >> 7) & 7) * 128 + (u & 127)
+    return e.reshape(-1), at.reshape(-1)
+
+
+P4_SPLITS = [("a0", r) for r in (8, 16, 64, 512, 4096, 32768)] + [
+    ("a1", 8), ("2step", 8)]
+
+
+@pytest.mark.parametrize("ikind", INDEX_KINDS)
+@pytest.mark.parametrize("kind,rows", P4_SPLITS,
+                         ids=[f"{k}-{r}" for k, r in P4_SPLITS])
+def test_p4_gather_split_model(kind, rows, ikind):
+    rng = np.random.default_rng(rows)
+    src = rng.integers(-2**31, 2**31, (rows, 128), dtype=np.int64).astype(
+        np.int32)
+    extent = {"a0": rows, "a1": 128, "2step": 1024}[kind]
+    idx = _indices(ikind, extent, (rows, 128), rows + 1)
+    written, read = p4_split(kind, rows, idx)
+    got = _apply_split(written, read, src, rows * 128).reshape(rows, 128)
+    want = lane_probe.gather(kind, src, idx, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _p1_threads(items, per_cta):
+    """The items (word groups, or a warp's tiles) that the launcher's
+    grid_of(items, per_cta) and the kernels' grid-stride loops visit:
+    worker = cta * per_cta + t takes items worker + j * grid * per_cta."""
+    grid = min(-(-items // per_cta), MAX_GRID)
+    stride = grid * per_cta
+    first = np.arange(stride)
+    item = (first[:, None] + stride * np.arange(-(-items // stride))[None, :])
+    return item[item < items]
+
+
+def p1_split(body, b, r, c, idx):
+    """(written, read) word indices of P1's lane, flat or row over the
+    launcher's grid: lane_kernel where body is lane and C <= 128,
+    row_kernel where body is row, C >= 4 and R * min(C, 32) <= 16384,
+    flat_kernel where body is flat and 1024 <= N <= 65536, else
+    direct_kernel."""
+    total = b * r * c
+    lr, lc = r.bit_length() - 1, c.bit_length() - 1
+    w_all = idx.reshape(-1).astype(np.int64) & 0xFFFFFFFF   # uint32
+    width = min(c, STRIP_COLS)
+    if body == "row" and c >= 4 and r * width <= STRIP_WORDS:
+        q4, parts = width // 4, c // width
+        t = _p1_threads(b * parts, 1)                     # a CTA's strips
+        blk, c0 = (t // parts) * r * c, (t % parts) * width
+        g = (np.arange(THREADS)[:, None]
+             + THREADS * np.arange(STRIP_WORDS // 4 // THREADS)[None, :])
+        g = g[g < r * q4]                                 # a thread's groups
+        rr, q = g // q4, g % q4
+        k = np.arange(4)
+        e = ((blk + c0)[:, None, None] + (rr * c + 4 * q)[None, :, None]
+             + k).reshape(-1)
+        # strip[p] holds x[blk + (p // W) * C + c0 + p % W]; the kernel
+        # reads p = (idx mod R) * W + 4q + k
+        pos = ((w_all[e] & (r - 1)) * width
+               + np.broadcast_to((4 * q)[None, :, None] + k,
+                                 (t.size, g.size, 4)).reshape(-1))
+        base = np.repeat(blk + c0, g.size * 4)
+        return e, base + (pos // width) * c + pos % width
+    if body == "lane" and c <= TILE:
+        tiles = _p1_threads(-(-total // TILE), THREADS // 32)
+        e = (tiles[:, None] * TILE + 4 * np.arange(32)[None, :]).reshape(-1)
+        e = (e[:, None] + np.arange(4)[None, :]).reshape(-1)
+        e = e[e < total]
+        i = e % TILE                                # the word in the tile
+        at = (e - i) + (i & ~(c - 1)) + (w_all[e] & (c - 1))
+        return e, at
+    n = r * c
+    if body == "flat" and FLAT_WORDS[0] <= n <= FLAT_WORDS[1]:
+        p = min(n, PIECE_WORDS)
+        t = _p1_threads(b * (n // p), 1)                # a CTA's chunks
+        blk = t // (n // p) * n
+        first = blk + t % (n // p) * p
+        g = (np.arange(FLAT_THREADS)[:, None] + FLAT_THREADS
+             * np.arange(PIECE_WORDS // 4 // FLAT_THREADS))
+        g = g[g < p // 4]                               # a thread's groups
+        e = (first[:, None, None] + 4 * g[None, :, None]
+             + np.arange(4)).reshape(-1)
+        u = w_all[e] & (n - 1)
+        # piece u // P holds x[blk + (u // P) * P + i] at i
+        return e, np.repeat(blk, g.size * 4) + (u // p) * p + (u & (p - 1))
+    groups = _p1_threads(-(-total // 4), THREADS)
+    e = (4 * groups[:, None] + np.arange(4)[None, :]).reshape(-1)
+    e = e[e < total]
+    u = w_all[e]
+    n_mask = (1 << (lr + lc)) - 1
+    if body == "lane":
+        at = (e & ~((1 << lc) - 1)) | (u & ((1 << lc) - 1))
+    elif body == "flat":
+        at = (e & ~n_mask) | (u & n_mask)
+    else:
+        at = (e & ~n_mask) | ((u & ((1 << lr) - 1)) << lc) | (e & (c - 1))
+    return e, at
+
+
+P1_SHAPES = [(1, 1, 1), (3, 8, 4), (2, 64, 128), (5, 512, 128),
+             (1, 16, 8192), (1, 8192, 16)]
+
+
+@pytest.mark.parametrize("ikind", INDEX_KINDS)
+@pytest.mark.parametrize("shape", P1_SHAPES,
+                         ids=["x".join(map(str, s)) for s in P1_SHAPES])
+@pytest.mark.parametrize("body", ["lane", "row", "flat"])
+def test_p1_gather_split_model(body, shape, ikind):
+    b, r, c = shape
+    rng = np.random.default_rng(r * c + b)
+    x = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    extent = {"lane": c, "row": r, "flat": r * c}[body]
+    idx = _indices(ikind, extent, shape, b + r + c)
+    written, read = p1_split(body, b, r, c, idx)
+    got = _apply_split(written, read, x, b * r * c).reshape(shape)
+    want, _ = gather_probe.gather(body, x, idx, device="cpu")
+    np.testing.assert_array_equal(got, want.numpy())
