@@ -60,13 +60,19 @@ launch count set to 0 just before it and read just after:
   output of its last timed launch held against its plain version on the
   same inputs; the gathers also with the host's time a call, P1's lane,
   row and flat behind an L2 flush, and their `torch.gather` /
-  `torch.take` on the same methods.
+  `torch.take` on the same methods; each chain body (P1 chase and hops,
+  P2, P3, P4's loops and wave) with its chain bound, priced by the
+  latency build of `csrc/probe_walk.cu` at the SM clock nvidia-smi reads
+  while the card is busy, held to be at most 1.03 times the SM cycles
+  its clock64 measured on that chain, and printed as one
+  {"chain_bounds": ...} line before the kernels line.
 
 Any failure raises. The last line is {"ok": true, "device": {...}}; the
-line before it is the card's name and power limit, and before that a
+line before it is the card's name and power limit, before that a
 {"kernels": [...]} line (each kernel's launches on the one-shot path, in
-the examples and in the torture phase beside those of its own path). Needs one CUDA GPU; exits
-non-zero without one.
+the examples and in the torture phase beside those of its own path), and
+before that the {"chain_bounds": ...} line of the probe bodies. Needs one
+CUDA GPU; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -82,6 +88,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from dataclasses import asdict
 
 import numpy as np
 import torch
@@ -103,6 +110,7 @@ from lz4_tpu_torch.parallel import engine as eng
 from lz4_tpu_torch.parallel.engine import TorchBackend
 from lz4_tpu_torch.probes import (fullbench, gather_probe, host_frame,
                                   lane_probe, torture, walk_probe)
+from lz4_tpu_torch.probes._common import floor as probe_floor
 from lz4_tpu_torch.probes._common import measure
 from lz4_tpu_torch.probes._timing import card as card_line
 from lz4_tpu_torch.probes._timing import (cuda_ms, cuda_ms_back_to_back,
@@ -1946,11 +1954,23 @@ def phase_probes():
     launch held against its plain version on the same inputs (exact),
     through `probes/_common.measure`, with each probe's launch count set
     to 0 just before and read just after (each body's `launches` are
-    those its timing made)."""
+    those its timing made). The chain bodies' bounds are priced by the
+    latency build (`walk_probe.latencies`) at the SM clock nvidia-smi reads
+    while the card is busy, both taken before the bodies run, and each is
+    held to the cycles its longest chain took. Returns the kernels line's
+    entries and the {"chain_bounds": ...} line."""
+    floor = probe_floor()
+    log("probe chain prices (latency build, SM cycles an instruction on "
+        f"chains of {walk_probe.LAT_STEPS}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in floor.cycles.items())
+        + f"; the launch ran at {floor.kernel_mhz:.1f} MHz (clock64 over "
+        f"globaltimer); nvidia-smi clocks.sm {floor.sm_mhz:.0f} MHz (max "
+        f"{floor.sm_max_mhz:.0f}, busy at the read: {floor.busy_at_read})")
     entries = []
     for mod in PROBES:
         mod.launches = 0
-        res = measure(mod.bodies(), lambda mod=mod: mod.launches)
+        res = measure(mod.bodies(), lambda mod=mod: mod.launches,
+                      floor=floor)
         if sum(r["launches"] for r in res.values()) != mod.launches:
             raise AssertionError(f"{mod.__name__}: launches per body do "
                                  f"not add up to {mod.launches}")
@@ -1964,6 +1984,13 @@ def phase_probes():
                    if "cycles_per_step" in e else "")
                 + (f"; library {_probe_times(e, 'library_')}"
                    if e["library_ms"] is not None else "")
+                + (f"; chain bound {e['chain_bound_ms']:.6f} ms, "
+                   f"{e['chain_cycles_per_step']:.2f} SM cycles a step of "
+                   f"the longest chain against "
+                   f"{e['longest_chain_cycles'] / e['longest_chain']:.2f} "
+                   f"measured (share {e['chain_share']:.3f} of ms, "
+                   f"{e['chain_cycles_share']:.3f} of its cycles)"
+                   if "chain_bound_ms" in e else "")
                 + f"; plain {e['plain_ms']:.1f} ms, "
                 + ("== plain" if e["same_as_plain"] else "DIFFERS")
                 + f" at {e['count']}")
@@ -1972,7 +1999,21 @@ def phase_probes():
     if bad:
         raise AssertionError(f"probe kernels differ from plain or were "
                              f"not launched: {bad}")
-    return entries
+    # a chain bound is a least time: above the cycles its chain took, a
+    # SASS count in CHAINS or a price is wrong (the margin is the spread
+    # of the latency build's prices between calls, 2.6% at most)
+    over = {e["name"]: e["chain_cycles_share"] for e in entries
+            if e.get("chain_cycles_share", 0.0) > 1.03}
+    if over:
+        raise AssertionError(f"chain bounds above the cycles their chains "
+                             f"took: {over}")
+    keys = ("ms", "cycles_per_step", "longest_chain", "chain",
+            "chain_cycles_per_step", "chain_bound_cycles", "chain_bound_ms",
+            "chain_share", "longest_chain_cycles", "chain_cycles_share")
+    chains = {**asdict(floor), "bodies": {
+        e["name"]: {k: e[k] for k in keys}
+        for e in entries if "chain_share" in e}}
+    return entries, {"chain_bounds": chains}
 
 
 def main() -> int:
@@ -1985,6 +2026,8 @@ def main() -> int:
         f" | {kind}")
 
     secs = _build.build()
+    secs.update({f"{k} latency": v for k, v in _build.build(
+        [walk_probe.LIB], walk_probe.LATENCY).items()})
     t0 = time.perf_counter()
     native.load()
     secs["host C"] = time.perf_counter() - t0
@@ -2017,7 +2060,7 @@ def main() -> int:
     torture_launches = phase_torture()
     phase_fullbench()
     phase_checkframe(frames16, hc_file, batch)
-    probes = phase_probes()
+    probes, chains = phase_probes()
 
     common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
               "blocks": m["blocks"], "plain_blocks": PLAIN_ROWS}
@@ -2081,6 +2124,7 @@ def main() -> int:
         k["torture_launches"] = torture_launches[key]
     for e in probes:
         e["torture_launches"] = torture_launches[e["source"]]
+    print(json.dumps(chains), flush=True)
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,8 +40,8 @@
 //            (floor division and floor mod, as jnp's // and %);
 //   10-15 the loop kernel over `nit` steps, acc = src[:8, :] at first,
 //         then acc = body(acc, i): 10 base, 11 a0_8, 12 a1_8, 13 2step,
-//         14 a0_big (rows 64, 512, 4096 in the probe), 15 onehot (a
-//         one-hot multiply and a sum over the rows, rows 512);
+//         14 a0_big (rows 64, 512, 4096 in the probe), 15 onehot (rows
+//         512; see below);
 //   20 wave: wave_kern's mock row step over `nit` steps with a 512-row
 //         history per lane. The TPU's scratch starts undefined (the
 //         interpreter reads INT32_MIN); the port zero-fills it.
@@ -51,13 +51,22 @@
 // in C++), floor mod of a power of two is a mask, and >> of an int32 is
 // arithmetic, as in jnp.
 //
+// onehot. b_onehot computes g[c] = sum over r of (r == (acc[0][c] + i)
+// mod 512) * src[r][c]: a one-hot multiply and a sum over 512 rows, the
+// TPU's way to select a row within a lane, whose per-lane row gathers it
+// could not trust. Exactly one term is not zero, so the sum is the row
+// select src[(acc[0][c] + i) & 511][c], which Hopper does with one
+// indexed load from the lane's column in shared memory: the step of
+// a0_big at 512 rows. Variant 15 is that select, so the probe reads
+// Hopper's cost of the select the TPU built from a one-hot product.
+//
 // What bounds them: the gathers move 12 bytes a word (idx and src in, out
 // out): 12 KB at 8 rows, 0.77 MB at 512, a few microseconds of launch and
 // one pass over the card at most, so the host's call dominates. The loops
-// and the wave are latency-bound: a step is a dependent shared-memory
-// load (or 512 of them for onehot) and some ALU; the bytes are 4 KB to
-// 2 MB read once and 4 KB written. stats[cta] = (SM cycles of thread 0's
-// loop, steps).
+// and the wave are latency-bound: a step is one dependent chain a lane
+// (some ALU, a shared-memory load, an xor), so more threads a lane would
+// gain nothing; the bytes are 4 KB to 2 MB read once and 4 KB written.
+// stats[cta] = (SM cycles of thread 0's loop, steps).
 
 #include "pyentry.h"  // first: Python.h precedes the system headers
 
@@ -170,15 +179,8 @@ __device__ inline void loop_body(const uint32_t* s, const uint32_t* s8,
     const uint32_t g = two_step(s8, (acc[0] + i) & 1023);
 #pragma unroll
     for (int r = 0; r < 8; ++r) acc[r] ^= g;
-  } else if (V == 14) {                            // mk_a0_big
+  } else {                       // 14 mk_a0_big; 15 b_onehot, a select
     const uint32_t g = s[((acc[0] + i) & (rows - 1)) * L + cl];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] ^= g;
-  } else {                                         // b_onehot
-    const uint32_t at = (acc[0] + i) & (rows - 1);
-    uint32_t g = 0;
-    for (int r = 0; r < rows; ++r)
-      g += static_cast<uint32_t>(r == static_cast<int>(at)) * s[r * L + cl];
 #pragma unroll
     for (int r = 0; r < 8; ++r) acc[r] ^= g;
   }

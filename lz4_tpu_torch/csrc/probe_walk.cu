@@ -29,17 +29,41 @@
 //   5 d_warp: the port's own variant: d's 8 chains on 8 lanes of one
 //        warp, one chain a lane (Hopper's other answer), their sums
 //        joined with shuffles;
-//   6 burn, "arbitrary": k_burn's grid of `grid` steps in order on one
-//        thread of one CTA, each `steps` of acc = acc * 1.000001f + x[0];
+//   6 burn, "arbitrary": k_burn's grid of `grid` steps, each `steps` of
+//        acc = acc * 1.000001f + x[0], as the lanes of one CTA (grid step
+//        g on thread g; 16 steps are 16 lanes of one warp);
 //   7 burn, "parallel": the same grid as `grid` CTAs of one thread.
 // The CTA of grid step g walks row g % B and writes out[g % B] (probe3's
 // `pl.program_id(0) % 8`; CTAs of equal rows write equal values). n is
 // clamped to [0, 4 * words_per_row], as the plain version clamps it (the
-// TPU read past its SMEM there). stats[g] = (SM cycles of the walk or the
-// burn loop, chain steps taken).
+// TPU read past its SMEM there). Walks: stats[g] = (SM cycles of the
+// walk, chain steps taken). Burn: stats[g] = (SM cycles of grid step g's
+// loop, its steps, the CTA that ran it).
 // The burn loop multiplies and adds with __fmul_rn / __fadd_rn, so nvcc
 // does not contract them into an FMA and the kernel equals the plain
-// version's float32 rounding exactly.
+// version's float32 rounding exactly. TPU "arbitrary" semantics keep the
+// grid on one TensorCore; they do not make it sequential, and out[g]
+// reads no other grid step, so the 16 chains run side by side on one SM
+// (one warp issues each step once for all 16) where the first port ran
+// them one after another on one thread.
+//
+// The latency build (-DLZ4T_PROBE_LATENCY, variant 8; not in the default
+// build) prices the instruction classes on the probe bodies' dependent
+// chains: one warp, lane 0 timing dependent chains of `steps` (4096)
+// instructions of each class with clock64 (SHFL with the whole warp),
+// each as a chain of 2 * steps less one of steps, so the clock reads and
+// the loop's entry cancel:
+//   0 LDS, a 32-bit shared-memory load whose address is the last load's
+//     value; 1 and 2 a global __ldg pointer chase, over a 4 KB ring that
+//     an untimed pass put in L1 (L1 hit), and over a 4 MB ring of
+//     32,768 lines that an untimed pass put in L2 and whose lines left
+//     L1 long before (L1 miss, L2 hit: 3 * steps loads, none of a line
+//     loaded since); 3 LOP3, IADD3, LOP3 ((x + y + (x & 3)) & z, three a
+//     step, walk e's ALU); 4 IMAD (x * y + z); 5 FMUL and FADD (burn's
+//     step, two a step); 6 SHFL (a butterfly shuffle of the last result).
+//   stats[k] = (SM cycles, instructions) of class k; stats[7] = (SM
+//   cycles, globaltimer ns) of the launch, the SM clock it ran at. The
+//   rings are int64 words holding the address of the next.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -202,25 +226,122 @@ __global__ void __launch_bounds__(kThreads)
   stats[2 * g + 1] = taken;
 }
 
-// k_burn: `per_cta` grid steps in order on thread 0 of each CTA. The
+// k_burn: grid step g on thread g % blockDim.x of CTA g / blockDim.x (a
+// thread takes g, g + all threads, ... where the grid is larger). The
 // input is read through a volatile pointer at every grid step, so the
 // compiler cannot fold the equal grid steps into one.
 __global__ void burn_kernel(const float* x, float* __restrict__ out,
-                            long long* __restrict__ stats, int per_cta,
+                            long long* __restrict__ stats, int grid,
                             int steps) {
   const volatile float* xv = x;
-  const long long t0 = clock64();
-  for (int j = 0; j < per_cta; ++j) {
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < grid;
+       g += gridDim.x * blockDim.x) {
     const float x0 = *xv;
+    const long long t0 = clock64();
     float acc = 0.0f;
     for (int i = 0; i < steps; ++i)
       acc = __fadd_rn(__fmul_rn(acc, 1.000001f), x0);
-    out[blockIdx.x * per_cta + j] = acc;
+    const long long t1 = clock64();
+    out[g] = acc;
+    stats[3 * g] = t1 - t0;
+    stats[3 * g + 1] = steps;
+    stats[3 * g + 2] = blockIdx.x;
   }
-  const long long t1 = clock64();
-  stats[2 * blockIdx.x] = t1 - t0;
-  stats[2 * blockIdx.x + 1] = static_cast<long long>(per_cta) * steps;
 }
+
+#ifdef LZ4T_PROBE_LATENCY
+constexpr int kLatWords = 1024;              // the LDS chain's ring
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// SM cycles of n steps x = step(x)
+template <typename T, typename F>
+__device__ __forceinline__ long long timed(T& x, int n, F step) {
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) x = step(x);
+  return clock64() - t0;
+}
+
+// SM cycles of n steps of a chain: a chain of 2n steps less one of n,
+// so the clock reads and the loop's entry and exit cancel
+template <typename T, typename F>
+__device__ __forceinline__ long long price(T& x, int n, F step) {
+  const long long once = timed(x, n, step);
+  return timed(x, 2 * n, step) - once;
+}
+
+// One warp: lane 0 prices each class's chain in turn (see the header);
+// y and z are 1 and 0x9e3779b9 from the host, so nvcc cannot fold them.
+__global__ void __launch_bounds__(32)
+    latency_kernel(const unsigned long long* l1, int l1_len,
+                   const unsigned long long* l2, int l2_len,
+                   uint32_t* __restrict__ sink, long long* __restrict__ st,
+                   int steps, uint32_t y, uint32_t z) {
+  __shared__ uint32_t s[kLatWords];
+  for (int i = threadIdx.x; i < kLatWords; i += 32)
+    s[i] = ((i + 97) & (kLatWords - 1)) * 4;   // byte offset of the next
+  __syncwarp();
+  const bool lead = threadIdx.x == 0;
+  const long long c_start = clock64(), g_start = globaltimer();
+  const auto next = [](const unsigned long long* q) {
+    return reinterpret_cast<const unsigned long long*>(__ldg(q));
+  };
+  if (lead) {
+    const char* sb = reinterpret_cast<const char*>(s);
+    uint32_t p = 0;
+    st[0] = price(p, steps, [&](uint32_t v) {
+      return *reinterpret_cast<const uint32_t*>(sb + v);
+    });
+    st[1] = steps;
+    sink[0] = p;
+
+    const unsigned long long* q = l1;
+    timed(q, l1_len, next);                      // the ring into L1
+    st[2] = price(q, steps, next);
+    st[3] = steps;
+    sink[1] = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(q));
+
+    q = l2;
+    timed(q, l2_len, next);    // the ring into L2, and out of L1 again
+    st[4] = price(q, steps, next);        // 3 * steps < l2_len loads
+    st[5] = steps;
+    sink[2] = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(q));
+
+    uint32_t x = z;                              // LOP3, IADD3, LOP3
+    st[6] = price(x, steps,
+                  [&](uint32_t v) { return (v + y + (v & 3)) & z; });
+    st[7] = 3ll * steps;
+    sink[3] = x;
+
+    x = z;
+    st[8] = price(x, steps, [&](uint32_t v) { return v * (y + 2) + z; });
+    st[9] = steps;
+    sink[4] = x;
+
+    float f = static_cast<float>(y);
+    const float a = 1.000001f * static_cast<float>(y);
+    st[10] = price(f, steps, [&](float v) {
+      return __fadd_rn(__fmul_rn(v, a), 0.5f);
+    });
+    st[11] = 2ll * steps;
+    sink[5] = __float_as_uint(f);
+  }
+  __syncwarp();
+  uint32_t v = threadIdx.x * z;
+  const long long t = price(v, steps, [](uint32_t w) {
+    return __shfl_xor_sync(0xffffffffu, w, 1);
+  });
+  if (lead) {
+    sink[6] = v;
+    st[12] = t, st[13] = steps;
+    st[14] = clock64() - c_start, st[15] = globaltimer() - g_start;
+  }
+}
+#endif
 
 std::atomic<unsigned long long> g_raised{0};
 
@@ -229,22 +350,35 @@ std::atomic<unsigned long long> g_raised{0};
 // Variants 0-5: words int32[B, words_per_row] (words_per_row <= 16640),
 // ns int32[B], out int32[B], stats int64[grid, 2]; `steps` is variant
 // e's count. Variants 6-7: words is x float32[1], out float32[grid],
-// stats int64[1 or grid, 2], `steps` the burn loop's count. Returns the
-// launch's cudaError_t (0 on success).
+// stats int64[grid, 3], `steps` the burn loop's count. Variant 8 (the
+// latency build only): words and ns the L1 and L2 rings (int64[B] and
+// int64[words_per_row]), out uint32[8], stats int64[8, 2], `steps` each
+// chain's length. Returns the launch's cudaError_t (0 on success).
 extern "C" int lz4t_probe_walk(const void* words, const void* ns, void* out,
                                void* stats, int B, int words_per_row,
                                int grid, int variant, int steps,
                                void* stream) {
-  if (grid <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 6 || variant == 7) {
-    const int ctas = variant == 6 ? 1 : grid;
-    burn_kernel<<<ctas, 1, 0, st>>>(
-        static_cast<const float*>(words), static_cast<float*>(out),
-        static_cast<long long*>(stats), grid / ctas, steps);
+#ifdef LZ4T_PROBE_LATENCY
+  if (variant == 8) {
+    latency_kernel<<<1, 32, 0, st>>>(
+        static_cast<const unsigned long long*>(words), B,
+        static_cast<const unsigned long long*>(ns), words_per_row,
+        static_cast<uint32_t*>(out), static_cast<long long*>(stats), steps,
+        1u, 0x9e3779b9u);
     return static_cast<int>(cudaGetLastError());
   }
-  if (variant < 0 || variant > 7 || B <= 0 || words_per_row <= 0 ||
+#endif
+  if (grid <= 0) return 0;
+  if (variant == 6 || variant == 7) {
+    // arbitrary: one CTA, a grid step a thread; parallel: a CTA a step
+    const int threads = variant == 6 ? (grid < 1024 ? grid : 1024) : 1;
+    burn_kernel<<<variant == 6 ? 1 : grid, threads, 0, st>>>(
+        static_cast<const float*>(words), static_cast<float*>(out),
+        static_cast<long long*>(stats), grid, steps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (variant < 0 || variant > 5 || B <= 0 || words_per_row <= 0 ||
       words_per_row > kMaxWords)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = lz4t::allow_smem(walk_kernel, kMaxSmem, g_raised);

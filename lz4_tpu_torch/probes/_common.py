@@ -1,13 +1,14 @@
 """What the probe kernels' wrappers share (`walk_probe`, `gather_probe`,
 `lane_probe`): their inputs' placement, int32 wrapping for the plain
-versions, the launch check, the bound of a body on the card, and the loop
-that times each body and holds it against its plain version (`Body`,
-`measure`, `cli`)."""
+versions, the launch check, the bounds of a body on the card (its bytes
+once, `bound`; its longest dependent chain, `Floor` and `chain_fields`),
+and the loop that times each body and holds it against its plain version
+(`Body`, `measure`, `cli`)."""
 from __future__ import annotations
 
 import json
 import sys
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import Any, Callable
 
 import numpy as np
@@ -102,14 +103,65 @@ def bound(nbytes: float, fp32_ops: float = 0.0) -> tuple[float, str]:
                                                              "bytes")
 
 
+#: the instruction classes a chain bound prices, in the order of the
+#: latency build's stats (`csrc/probe_walk.cu`, -DLZ4T_PROBE_LATENCY):
+#: LDS; a global load that hits L1; one that misses L1 and hits L2;
+#: IADD3, LOP3 and the other integer ALU ops (ISETP, SEL, IMNMX, LEA,
+#: SHF); IMAD; FMUL and FADD; SHFL
+CLASSES = ("lds", "ldg_l1", "ldg_l2", "alu", "imad", "fp32", "shfl")
+
+
+@dataclass(frozen=True)
+class Floor:
+    """What a chain bound is priced with: the SM cycles of one instruction
+    of each class on a dependent chain (`cycles`, class -> cycles, from
+    the latency build: `walk_probe.latencies`) and the SM clock in MHz
+    (`sm_mhz`, nvidia-smi's `clocks.sm` read beside the phase); beside
+    them, what else the measurement read (`floor()`: the latency launch's
+    own clock, nvidia-smi's `clocks.max.sm`, and whether the card was
+    still busy when nvidia-smi's read returned)."""
+    cycles: dict
+    sm_mhz: float
+    kernel_mhz: float | None = None
+    sm_max_mhz: float | None = None
+    busy_at_read: bool | None = None
+
+
+def chain_fields(per_step: dict, steps: float, ms: float,
+                 floor: Floor | None, cycles: float) -> dict:
+    """A body's chain bound: its longest dependent chain is `steps` steps,
+    each `per_step[k]` instructions of class k on the critical path (read
+    from the kernel's SASS; branches cost nothing, so it is a least time).
+    `chain_bound_cycles` is that chain priced at `floor.cycles`,
+    `chain_bound_ms` the same at `floor.sm_mhz`, `chain_share`
+    chain_bound_ms / ms. Beside them, in the same unit, the SM cycles the
+    kernel's clock64 measured on that chain (`cycles`, as
+    `longest_chain_cycles`) and `chain_cycles_share`, chain_bound_cycles
+    over them: the share without the host's launch, above 1 where a count
+    or a price is wrong. Empty without a floor."""
+    if floor is None:
+        return {}
+    cycles = float(cycles)
+    step = sum(n * floor.cycles[k] for k, n in per_step.items())
+    bound = step * steps
+    b_ms = bound / (floor.sm_mhz * 1e3)
+    return {"chain": dict(per_step), "chain_cycles_per_step": step,
+            "chain_bound_cycles": bound, "chain_bound_ms": b_ms,
+            "chain_share": b_ms / ms if ms > 0 else float("inf"),
+            "longest_chain_cycles": cycles,
+            "chain_cycles_share": bound / cycles if cycles > 0
+            else float("inf")}
+
+
 @dataclass(frozen=True)
 class Body:
     """One probe body on the card at the tool's sizes. `run` launches its
     kernel once and returns (outs, stats): the outputs, a tuple of
     tensors, and what the kernel reports of itself (SM cycles, steps) or
     None. `plain` computes `outs` on the same inputs with the plain
-    version. `report(stats, ms)` gives what the body's stats and time say
-    (steps, ns and SM cycles a step) and its `bound_ms` and `bound_by`.
+    version. `report(stats, ms, floor)` gives what the body's stats and
+    time say (steps, ns and SM cycles a step), its `bound_ms` and
+    `bound_by` and, for a chain body given a `Floor`, its `chain_fields`.
     `library`, where there is one, is a PyTorch call of the same function
     on the same inputs, timed beside it on the same methods. `host` adds
     the host's and the card's time a call (`host_us`, `device_us`),
@@ -154,7 +206,23 @@ def _best(a: dict, b: dict) -> dict:
     return {k: min(v, b[k]) for k, v in a.items()}
 
 
-def measure(bodies, launched: Callable[[], int], runs: int = 5) -> dict:
+def floor() -> Floor:
+    """The chain bounds' prices on the current card: the latency build's
+    cycles an instruction, at the SM clock nvidia-smi reads while the card
+    is busy. Raises when nvidia-smi's read outlasted the spin twice (an
+    idle card's clock would price every chain several times too high)."""
+    from lz4_tpu_torch.probes import walk_probe
+    from lz4_tpu_torch.probes._timing import sm_clock
+    for busy_s in (2.0, 8.0):
+        clock = sm_clock(busy_s)
+        if clock["busy_at_read"]:
+            return Floor(**walk_probe.latencies(), **clock)
+    raise RuntimeError(f"nvidia-smi read the SM clock after a spin of "
+                       f"{busy_s:g} s had ended: {clock}")
+
+
+def measure(bodies, launched: Callable[[], int], runs: int = 5,
+            floor: Floor | None = None) -> dict:
     """Each body timed on the card (`_card_times`: `ms`, one launch after a
     sync, best of `runs`, `ms_back_to_back`, and `host_us`, `device_us`
     and `ms_l2_flushed` where the body asks), the launches that took
@@ -165,8 +233,8 @@ def measure(bodies, launched: Callable[[], int], runs: int = 5) -> dict:
     through the same harness (`library_ms`, `library_ms_back_to_back`,
     ...; `library_ms` None without one) and the body's report. A body
     with a library call is timed in turns with it, kernel, library,
-    kernel, library, and each keeps the best of its two passes. Keyed by
-    body name."""
+    kernel, library, and each keeps the best of its two passes. A chain
+    body's report prices its chain at `floor`. Keyed by body name."""
     res = {}
     for body in bodies:
         last, lib_last = [], []
@@ -193,24 +261,26 @@ def measure(bodies, launched: Callable[[], int], runs: int = 5) -> dict:
             g.shape == w.shape and torch.equal(g, w)
             for g, w in zip(outs, want))
         r.update(same_as_plain=same, max_abs_err=_max_abs_err(outs, want),
-                 plain_ms=plain_ms, **lib, **body.report(stats, r["ms"]),
+                 plain_ms=plain_ms, **lib,
+                 **body.report(stats, r["ms"], floor),
                  count=body.count, replaces=body.replaces)
         res[body.name] = r
     return res
 
 
 def cli(probe: str, lib: str, bodies, launched, runs: int, **meta) -> int:
-    """A probe's command line: build `lib`, `measure` its bodies and
-    print one JSON line with the card's name and power limit. Returns 0
-    when every body equals its plain version, 1 when one does not, 2
-    without a CUDA device."""
+    """A probe's command line: build `lib`, price the chains (`floor`),
+    `measure` its bodies and print one JSON line with the card's name and
+    power limit and the floor. Returns 0 when every body equals its plain
+    version, 1 when one does not, 2 without a CUDA device."""
     if not torch.cuda.is_available():
         print(f"{probe}: no CUDA device", file=sys.stderr)
         return 2
     from lz4_tpu_torch import _build
     from lz4_tpu_torch.probes._timing import card
     _build.build([lib])
-    res = measure(bodies(), launched, runs)
+    fl = floor()
+    res = measure(bodies(), launched, runs, fl)
     print(json.dumps({"probe": probe, "card": card(), **meta,
-                      "bodies": res}), flush=True)
+                      "floor": asdict(fl), "bodies": res}), flush=True)
     return 0 if all(r["same_as_plain"] for r in res.values()) else 1

@@ -18,7 +18,8 @@
 Each warms up with one call first. Needs a CUDA device (`timed_runs`
 also runs on the CPU, where it gives the host time only). `card()` is the
 card's name and power limit as nvidia-smi gives them, for every line a
-probe prints.
+probe prints; `sm_clock()` the SM clock nvidia-smi reads while the card
+is busy (the probes' chain bounds are priced at it).
 """
 from __future__ import annotations
 
@@ -38,6 +39,26 @@ def card() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def sm_clock(busy_s: float = 2.0) -> dict:
+    """nvidia-smi's `clocks.sm` and `clocks.max.sm` of the first card in
+    MHz (`sm_mhz`, `sm_max_mhz`), read while a spin kernel of some
+    `busy_s` seconds holds the card busy (an idle card lowers its clock),
+    and whether the spin still ran when the read returned
+    (`busy_at_read`)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(busy_s * 2e9))
+    done = torch.cuda.Event()
+    done.record()
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60,
+                       check=True)
+    busy = not done.query()
+    torch.cuda.synchronize()
+    sm, top = (float(v) for v in r.stdout.strip().splitlines()[0].split(","))
+    return {"sm_mhz": sm, "sm_max_mhz": top, "busy_at_read": busy}
 
 
 def _events():

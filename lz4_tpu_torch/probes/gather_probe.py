@@ -36,8 +36,11 @@ last timed launch is held against its plain version on the same inputs
 (`probes/_common.measure`; the plain hop loop takes a few torch ops a
 step). It reports `ms` (`probes/_timing.cuda_ms`, one launch after a
 sync, which for these short kernels holds the host's launch time;
-`ms_back_to_back` beside it), for the chains `ns_per_step` and
-`cycles_per_step` (clock64 of a block's thread), and for lane, row and
+`ms_back_to_back` beside it), for the chains `ns_per_step`,
+`cycles_per_step` (clock64 of a block's thread) and the chain bound
+(`_common.chain_fields`; a load is priced as an L2 hit where it is the
+launch's first touch of its 128-byte line, which L1 cannot hold yet, and
+as an L1 hit elsewhere), and for lane, row and
 flat the host's and the card's time a call (`host_us`, `device_us`), the
 time behind an L2 flush (`ms_l2_flushed`: their 25.2 MB fit the 50 MB
 L2) and one `torch.gather` of the same function on the same inputs (the
@@ -78,6 +81,14 @@ REPLACES = {"lane": "tools/pallas_probe.py:78",
             "row": "tools/pallas_probe.py:103",
             "chase": "tools/pallas_probe.py:115",
             "hops": "tools/pallas_probe.py:134"}
+
+#: instructions a step on the longest chain besides its two loads, by
+#: class (`_common.CLASSES`), read from the SASS (`cuobjdump -sass` of the
+#: built library): chase's round (ISETP, SEL, SEL, IADD3, LEA.HI.X.SX32,
+#: LEA.HI.X between its loads; the store and the barrier priced at 0) and
+#: hops' step (LOP3, IADD3, LEA, LEA.HI.X to the first load; IADD3,
+#: LEA.HI.X.SX32, ISETP.EX, SEL, LOP3, IADD3, LEA, LEA.HI.X to the second)
+CHAINS = {"chase": {"alu": 6}, "hops": {"alu": 12}}
 
 #: the library's Python entry (`csrc/pyentry.h`), once loaded
 _entry = None
@@ -215,23 +226,55 @@ def _args(body: str, d: dict):
     return d["x"], d[body]
 
 
-def _chain_report(body: str):
+def hop_first_touches(ml: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """int64[B]: the 128-byte lines of ml and of nm that each block's hop
+    chain loads for the first time in the launch, from the cursors it
+    wrote (`out`, the cursor before each step): L1 starts the launch
+    empty, so no load of those can hit it."""
+    nb = ml.shape[0]
+    n = ml[0].numel()
+    cur = out.reshape(nb, -1).to(torch.int64).cpu()
+    step = ml.reshape(nb, n).to(torch.int64).cpu().gather(1, cur & (n - 1))
+    lin = torch.clamp(cur + step, max=n - 1) & (n - 1)
+    at = cur & (n - 1)
+    return torch.tensor([len(torch.unique(at[b] >> 5))
+                         + len(torch.unique(lin[b] >> 5))
+                         for b in range(nb)])
+
+
+def _chain_report(body: str, ml=None):
     words = B * R * C
 
-    def report(stats, ms: float) -> dict:
+    def report(stats, ms: float, floor=None) -> dict:
         if stats is None:
             # lane, row, flat: the index and the source in, out
             b_ms, by = cm.bound(12 * words)
             return {"bound_ms": b_ms, "bound_by": by}
+        if body == "hops":
+            stats, out = stats
         st = stats.cpu().to(torch.float64)
         steps = int(st[:, 1].max())
         # chase: the block in and out; hops: the words its chains visit
         # (two reads and one write a step)
         b_ms, by = cm.bound(8 * words if body == "chase"
                             else 12 * B * STEPS)
-        return {"steps": steps, "ns_per_step": ms * 1e6 / max(steps, 1),
+        # two loads a step: chase's first round reads the input for the
+        # first time (L2), its later rounds what the thread wrote; hops'
+        # block with the most first touches is its longest chain
+        if body == "chase":
+            cold, at = 1, st[:, 1] == steps
+        else:
+            touches = hop_first_touches(ml, out)
+            cold = int(touches.max())
+            at = touches == cold
+        cold /= max(steps, 1)
+        per_step = {**CHAINS[body], "ldg_l2": cold, "ldg_l1": 2 - cold}
+        return {"steps": steps, "longest_chain": steps,
+                "ns_per_step": ms * 1e6 / max(steps, 1),
                 "cycles_per_step": float((st[:, 0] / st[:, 1].clamp(
-                    min=1)).mean()), "bound_ms": b_ms, "bound_by": by}
+                    min=1)).mean()), "bound_ms": b_ms, "bound_by": by,
+                **cm.chain_fields(per_step, steps, ms, floor,
+                                  st[at, 0].max())}
     return report
 
 
@@ -249,13 +292,14 @@ def bodies() -> list[cm.Body]:
 
         def run(body=body, args=args):
             got, stats = gather(body, *args)
-            return (got,), stats
+            return (got,), ((stats, got) if body == "hops" else stats)
 
         def plain(body=body, args=args):
             return (gather_plain(body, *args, steps=STEPS if body == "hops"
                                  else ROUNDS),)
         out.append(cm.Body(
-            f"P1 k_{body}", REPLACES[body], run, plain, _chain_report(body),
+            f"P1 k_{body}", REPLACES[body], run, plain,
+            _chain_report(body, d["ml"]),
             {"steps": STEPS} if body == "hops" else {"B": B, "R": R, "C": C},
             partial(torch.gather, *lib[body]) if body in lib else None,
             host=body in lib, flushed=body in lib))

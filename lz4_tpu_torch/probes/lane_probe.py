@@ -15,7 +15,11 @@ Ports `tools/session_r4probe2.py` on its data (seed 7, int32 in [0,
 - the loop kernel of `mk_loop` (`loop`): `nit` steps of acc = body(acc,
   i) from acc = src[:8, :], with the bodies `base`, `a0_8`, `a1_8`,
   `2step` (8 rows), `a0_big` at 64, 512 and 4096 rows (nit, nit / 4,
-  nit / 32 steps, as the tool) and `onehot` (512 rows, nit / 4);
+  nit / 32 steps, as the tool) and `onehot` (512 rows, nit / 4). The
+  TPU's one-hot multiply and sum over 512 rows selects one row of each
+  lane, so on the card `onehot` is that select, one indexed load from
+  the lane's column in shared memory (a0_big's step); its plain version
+  keeps the one-hot arithmetic;
 - `wave_kern` (`wave`): nit / 8 mock row steps, each a two-step fetch
   pair, some 40 ALU ops, a gather from a 512-row history of each lane and
   a row store into it. The TPU's history starts undefined; the port
@@ -38,7 +42,8 @@ against its plain version on the same inputs (`probes/_common.measure`;
 the plain loops take a few torch ops a step, some seconds a body). It
 reports `ms` (`probes/_timing.cuda_ms`; `ms_back_to_back` beside it),
 `ns_per_step` (ms over the steps), `cycles_per_step` (clock64 of a CTA's
-first thread), for the gathers the host's and the card's time a call
+first thread), for the loops and the wave the chain bound
+(`_common.chain_fields`), for the gathers the host's and the card's time a call
 (`host_us`, `device_us`) and, for the gathers with indices in range,
 `torch.gather` (a0, a1) or `torch.take` (2step) of the same function on
 the same inputs, timed on the same methods (`library_ms`,
@@ -72,6 +77,22 @@ GATHERS = {"a0": 0, "a1": 1, "2step": 2}
 LOOPS = {"base": 10, "a0_8": 11, "a1_8": 12, "2step": 13, "a0_big": 14,
          "onehot": 15}
 WAVE = 20
+#: instructions a step on the longest chain, by class (`_common.CLASSES`),
+#: read from the SASS of each body's loop (`cuobjdump -sass` of the built
+#: library; nvcc unrolls the loops by 2 or 4, hence the fractions): base
+#: VIADD, LOP3; a0_8 VIADD, LOP3, IMAD, LEA, LDS, LOP3; a1_8 VIADD,
+#: IMAD.SHL, LOP3, LDS, LOP3; 2step LOP3, VIADD, LEA or IMAD.SHL, LOP3,
+#: LDS; a0_big and onehot LOP3, IADD3 or IMAD.IADD, LOP3, IMAD, LEA, LDS;
+#: wave the two-step fetch (VIADD, IMAD.SHL, VIADD, LOP3, LDS), the parse
+#: ALU (SHF, then 5 rounds of LOP3, IMAD.IADD, LOP3, ISETP, SEL,
+#: IMAD.IADD), the history gather (VIADD, IMAD.SHL, LOP3, IMAD.IADD, LEA,
+#: LDS) and the combine (LOP3, PRMT, LOP3, LOP3)
+CHAINS = {"base": {"alu": 2}, "a0_8": {"alu": 4, "imad": 1, "lds": 1},
+          "a1_8": {"alu": 3, "imad": 1, "lds": 1},
+          "2step": {"alu": 3.75, "imad": 0.25, "lds": 1},
+          "a0_big": {"alu": 3.75, "imad": 1.25, "lds": 1},
+          "onehot": {"alu": 3.75, "imad": 1.25, "lds": 1},
+          "wave": {"alu": 31, "imad": 13, "lds": 2}}
 _FILE = "tools/session_r4probe2.py"
 #: body -> (function, kind, rows, steps as a fraction of nit, replaces)
 BODIES = {
@@ -302,18 +323,21 @@ def inputs(seed: int = 7) -> dict:
 
 
 def _report(body: str, nit: int):
-    fn, _, rows, frac, _ = BODIES[body]
+    fn, kind, rows, frac, _ = BODIES[body]
     words = rows * LANES
 
-    def report(stats, ms: float) -> dict:
+    def report(stats, ms: float, floor=None) -> dict:
         if fn == "gather":
             b_ms, by = cm.bound(12 * words)   # src and idx in, out
             return {"bound_ms": b_ms, "bound_by": by}
-        steps = nit // frac
+        steps = nit // frac                   # every lane's chain
         b_ms, by = cm.bound(4 * words + 4 * 8 * LANES)  # src in, acc out
-        return {"steps": steps, "ns_per_step": ms * 1e6 / max(steps, 1),
+        return {"steps": steps, "longest_chain": steps,
+                "ns_per_step": ms * 1e6 / max(steps, 1),
                 "cycles_per_step": float(stats[0, 0]) / max(steps, 1),
-                "bound_ms": b_ms, "bound_by": by}
+                "bound_ms": b_ms, "bound_by": by,
+                **cm.chain_fields(CHAINS[kind or fn], steps, ms, floor,
+                                  stats[:, 0].max())}
     return report
 
 

@@ -1,8 +1,10 @@
 """P2 and P3 on Hopper: one thread walking a 66,560-byte block in shared
 memory, the latency floor under B2's parse chain, and the float32 burn
-loop on one CTA or many (`csrc/probe_walk.cu`).
+loop on one SM's lanes or on many SMs (`csrc/probe_walk.cu`); and the
+latency build that prices every probe body's chain bound.
 
     python -m lz4_tpu_torch.probes.walk_probe [--grid G] [--runs 5]
+    python -m lz4_tpu_torch.probes.walk_probe --latency
 
 Ports `tools/session_pallas_probe2.py` (`k_smem`, `k_burn`) and
 `tools/session_pallas_probe3.py` (`k_a` .. `k_e`) on their data: 8 rows
@@ -18,8 +20,10 @@ bodies (`walk`'s variants):
   `d_warp`, the port's own: the 8 chains on 8 lanes of a warp;
 - `e`: 26,214 steps of a fixed count, p wrapping at 65,536;
 - `arbitrary` / `parallel` (`P2 k_burn`): 16 grid steps of 200,000
-  steps of acc = acc * 1.000001 + x[0] in float32, in order on one CTA
-  or as 16 CTAs (what "megacore" asked on the TPU).
+  steps of acc = acc * 1.000001 + x[0] in float32, as 16 lanes of one
+  warp on one SM (the TPU's "arbitrary" keeps the grid on one core, and
+  its steps are independent) or as 16 CTAs (what "megacore" asked on the
+  TPU).
 
 The CTA of grid step g walks row g % 8 (`--grid`, default
 `LZ4_TPU_P3_GRID` or 8, probe3's grid). Each body runs at the tool's
@@ -29,10 +33,20 @@ a few torch ops a step, some seconds a body). It reports `ms`
 (`probes/_timing.cuda_ms`, one launch after a sync; `ms_back_to_back`
 beside it), `ns_per_iter` (ms over every chain step of the grid, the
 TPU tool's unit, since its grid ran in order), `ns_per_step` (ms over the
-steps of the longest chain: CTAs run at once here), and
-`cycles_per_step` (the walking thread's clock64 over its steps). Prints
-one JSON line with the card's name and power limit. Needs one CUDA GPU
-and nvcc.
+steps of the longest chain: CTAs and burn lanes run at once here),
+`cycles_per_step` (the walking thread's or burn lane's clock64 over its
+steps) and the chain bound (`_common.chain_fields`: `chain_bound_cycles`,
+`chain_bound_ms`, `chain_share`). Prints one JSON line with the card's
+name and power limit. Needs one CUDA GPU and nvcc.
+
+`--latency` builds `csrc/probe_walk.cu` with `-DLZ4T_PROBE_LATENCY` and
+prints one JSON line: the SM cycles an instruction of each class of
+`_common.CLASSES` on a dependent chain (`latencies`: a chain of 8,192
+less one of 4,096; each chain's result held against a host replay,
+`latency_sink`), the clock
+the launch ran at (clock64 over globaltimer) and nvidia-smi's SM clock
+read while the card is busy. Every probe's chain bound is priced at
+these (`_common.floor`).
 
 On CPU tensors (or `device="cpu"`) `walk` and `burn` run the plain
 versions: torch ops over the grid's rows, a step at a time. The burn
@@ -43,8 +57,10 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import json
 import os
 import sys
+from dataclasses import asdict
 
 import numpy as np
 import torch
@@ -62,6 +78,28 @@ SOURCE = "lz4_tpu_torch/csrc/probe_walk.cu"
 
 WALKS = {"a": 0, "b": 1, "c": 2, "d": 3, "e": 4, "d_warp": 5}
 BURNS = {"arbitrary": 6, "parallel": 7}
+#: the latency build's defines and its chains' length
+LATENCY = ("LZ4T_PROBE_LATENCY",)
+LAT_STEPS = 4096
+#: the latency kernel's y and z, as its launcher passes them
+LAT_Y, LAT_Z = 1, 0x9E3779B9
+#: its L1 and L2 rings' entries
+LAT_RINGS = (32, 32768)
+#: instructions a step on the longest chain, by class (`_common.CLASSES`),
+#: read from the SASS of each body's loop (`cuobjdump -sass` of the built
+#: library): the loop-carried path from one step's position (or acc) to
+#: the next step's, through the compare that decides the loop's exit where
+#: that hangs on the data. a, d_warp: (IMAD.IADD,) LDS.U8, LOP3, IADD3,
+#: ISETP; b: VIADD and ISETP every 4 steps (the loads are off the chain);
+#: c: IMAD, LOP3, IADD3, ISETP; d, an iteration of its 8 chains: VIMNMX,
+#: LDS.U8, LOP3, VIADD, SEL, IMAD.IADD of the first chain, then the 8
+#: ISETPs that OR the chains' exits; e: LDS.U8, LOP3, IADD3, LOP3 (its
+#: count runs beside); burn: FMUL, FADD
+CHAINS = {"a": {"lds": 1, "alu": 3}, "b": {"alu": 0.5},
+          "c": {"imad": 1, "alu": 3}, "d": {"lds": 1, "alu": 12, "imad": 1},
+          "d_warp": {"imad": 1, "lds": 1, "alu": 3},
+          "e": {"lds": 1, "alu": 3}, "arbitrary": {"fp32": 2},
+          "parallel": {"fp32": 2}}
 #: body -> (walk variant or burn mode, the TPU kernel it replaces)
 BODIES = {
     "P2 k_smem": ("a", "tools/session_pallas_probe2.py:52"),
@@ -131,6 +169,20 @@ def walk(words, ns, variant: str, *, grid: int | None = None,
 def walk_plain(words: torch.Tensor, ns: torch.Tensor, variant: str, *,
                grid: int, steps: int = E_STEPS):
     """Plain version of `walk` on the tensors' own device: (acc, steps)."""
+    out, taken = _walk_chains(words, ns, variant, grid=grid, steps=steps)
+    return out, taken.sum(1)
+
+
+def longest_chains(words: torch.Tensor, ns: torch.Tensor, variant: str, *,
+                   grid: int, steps: int = E_STEPS) -> torch.Tensor:
+    """The steps of each grid step's longest chain (int64[grid]): its
+    walk's steps, or the most of d's and d_warp's 8 chains."""
+    return _walk_chains(words, ns, variant, grid=grid, steps=steps)[1] \
+        .max(1).values
+
+
+def _walk_chains(words, ns, variant, *, grid, steps):
+    """(acc, steps of each of a grid step's chains int64[grid, chains])."""
     dev = words.device
     B, W = words.shape
     rows = torch.arange(grid, device=dev) % B
@@ -148,7 +200,7 @@ def walk_plain(words: torch.Tensor, ns: torch.Tensor, variant: str, *,
             byte = byte_at(p)
             p = (p + 1 + (byte & 3)) % 65536
             acc = acc + byte
-        taken = torch.full((grid,), max(steps, 0), dtype=torch.int64,
+        taken = torch.full((grid, 1), max(steps, 0), dtype=torch.int64,
                            device=dev)
     else:
         if variant in ("d", "d_warp"):
@@ -171,7 +223,6 @@ def walk_plain(words: torch.Tensor, ns: torch.Tensor, variant: str, *,
             p = torch.where(act, p + adv, p)
             acc = acc + torch.where(act, byte, 0)
             taken = taken + act
-        taken = taken.sum(1)
     out = torch.zeros(B, dtype=torch.int32, device=dev)
     out[rows] = cm.wrap32(acc.sum(1)).to(torch.int32)
     return out, taken
@@ -180,9 +231,10 @@ def walk_plain(words: torch.Tensor, ns: torch.Tensor, variant: str, *,
 def burn(x, mode: str, *, steps: int = BURN_STEPS, grid: int = BURN_GRID,
          device=None):
     """k_burn: out[g] = `steps` of acc = acc * 1.000001 + x[0] from 0.0,
-    in float32, for g < grid, on one CTA in order ("arbitrary") or on
+    in float32, for g < grid, as the lanes of one CTA ("arbitrary") or as
     `grid` CTAs ("parallel"). x float32[1]. Returns (out float32[grid],
-    SM cycles of each CTA int64 or None on the CPU)."""
+    stats int64[grid, 3] = (SM cycles, steps, CTA) of each grid step's
+    loop on the card, else None)."""
     global launches
     x = cm.as_input(x, device, torch.float32)
     dev = cm.same_device(x)
@@ -193,15 +245,14 @@ def burn(x, mode: str, *, steps: int = BURN_STEPS, grid: int = BURN_GRID,
     if dev.type == "cpu":
         return burn_plain(x, grid=grid, steps=steps), None
     out = torch.empty(grid, dtype=torch.float32, device=dev)
-    ctas = 1 if mode == "arbitrary" else grid
-    stats = torch.empty((ctas, 2), dtype=torch.int64, device=dev)
+    stats = torch.empty((grid, 3), dtype=torch.int64, device=dev)
     from lz4_tpu_torch import _build
     fn = _build.load("probe_walk")
     rc = cm.launch(fn, dev, x.data_ptr(), None, out.data_ptr(),
                    stats.data_ptr(), 0, 0, grid, BURNS[mode], steps)
     cm.check_rc(rc, f"probe_walk burn {mode}")
     launches += 1
-    return out, stats[:, 0]
+    return out, stats
 
 
 def burn_plain(x: torch.Tensor, *, grid: int = BURN_GRID,
@@ -216,29 +267,118 @@ def burn_plain(x: torch.Tensor, *, grid: int = BURN_GRID,
 
 # ---------------------------------------------------------------- on the card
 
-def _walk_report(stats, ms: float) -> dict:
-    taken, cycles = (t.cpu() for t in stats)
-    total, longest = int(taken.sum()), int(taken.max())
-    # the function needs the bytes its chains visit, ns and acc
-    b_ms, by = cm.bound(total + 8 * ROWS)
-    return {"steps": total, "longest_chain": longest,
-            "ns_per_iter": ms * 1e6 / max(total, 1),
-            "ns_per_step": ms * 1e6 / max(longest, 1),
-            "cycles_per_step": float((cycles.to(torch.float64)
-                                      / taken.clamp(min=1)).mean()),
-            "bound_ms": b_ms, "bound_by": by}
+def _ring(n: int, dev, seed: int) -> torch.Tensor:
+    """A pointer-chase ring of n int64 entries 128 bytes apart: entry k
+    holds the address of the next, in a seeded random order that visits
+    all n and comes back to entry 0."""
+    buf = torch.zeros(n * 16, dtype=torch.int64, device=dev)
+    order = np.random.default_rng(seed).permutation(n)
+    nxt = np.empty(n, np.int64)
+    nxt[order] = np.roll(order, -1)
+    buf[::16] = torch.from_numpy(buf.data_ptr() + nxt * 128).to(dev)
+    return buf
 
 
-def _burn_report(cycles, ms: float) -> dict:
-    cycles = cycles.cpu().to(torch.float64)
-    total = BURN_STEPS * BURN_GRID
-    per_cta = total // cycles.numel()
-    b_ms, by = cm.bound(4 + 4 * BURN_GRID, 2.0 * total)
-    return {"steps": total, "longest_chain": per_cta,
-            "ns_per_iter": ms * 1e6 / total,
-            "ns_per_step": ms * 1e6 / per_cta,
-            "cycles_per_step": float((cycles / per_cta).mean()),
-            "bound_ms": b_ms, "bound_by": by}
+def _ring_walk(ring: torch.Tensor, k: int) -> int:
+    """The address `k` steps along `ring` from its entry 0."""
+    buf, base = ring.cpu().numpy()[::16], ring.data_ptr()
+    at = 0
+    for _ in range(k):
+        at = (int(buf[at]) - base) // 128
+    return base + 128 * at
+
+
+def latency_sink(l1: torch.Tensor, l2: torch.Tensor,
+                 steps: int = LAT_STEPS) -> list[int]:
+    """A host replay of what the latency kernel leaves of each chain in
+    its sink (uint32[7]): every chain runs `steps` and then 2 * `steps`
+    steps (`price`), the rings after one untimed lap, the shuffle's lane
+    0 after swapping with lane 1."""
+    n = 3 * steps
+    m32 = 0xFFFFFFFF
+    p = 0                                  # LDS: s[i] = ((i + 97) & 1023) * 4
+    for _ in range(n):
+        p = ((p // 4 + 97) & 1023) * 4
+    alu = imad = LAT_Z
+    for _ in range(n):
+        alu = (alu + LAT_Y + (alu & 3)) & LAT_Z
+        imad = (imad * (LAT_Y + 2) + LAT_Z) & m32
+    f = np.float32(LAT_Y)
+    a = np.float32(1.000001) * np.float32(LAT_Y)
+    for _ in range(n):
+        f = np.float32(f * a) + np.float32(0.5)
+    lane0 = 0 if n % 2 == 0 else LAT_Z
+    return [p, _ring_walk(l1, l1.numel() // 16 + n) & m32,
+            _ring_walk(l2, l2.numel() // 16 + n) & m32, alu, imad,
+            int(np.float32(f).view(np.uint32)), lane0]
+
+
+def latencies(steps: int = LAT_STEPS) -> dict:
+    """The latency build on the current CUDA device (see the module
+    docstring): `cycles`, class -> SM cycles an instruction, and
+    `kernel_mhz`, the clock the launch ran at (clock64 over
+    globaltimer). Raises where a chain's result differs from its host
+    replay (`latency_sink`)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the latency build needs a CUDA device")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    l1, l2 = (_ring(n, dev, seed) for seed, n in enumerate(LAT_RINGS, 1))
+    sink = torch.zeros(8, dtype=torch.int32, device=dev)
+    stats = torch.zeros((8, 2), dtype=torch.int64, device=dev)
+    from lz4_tpu_torch import _build
+    rc = cm.launch(_build.load(LIB, LATENCY), dev, l1.data_ptr(),
+                   l2.data_ptr(), sink.data_ptr(), stats.data_ptr(),
+                   LAT_RINGS[0], LAT_RINGS[1], 1, 8, steps)
+    cm.check_rc(rc, "probe_walk latency")
+    got = [v & 0xFFFFFFFF for v in sink.cpu().tolist()[:7]]
+    want = latency_sink(l1, l2, steps)
+    if got != want:
+        raise RuntimeError(f"latency chains differ from their host replay: "
+                           f"{got} != {want}")
+    st = stats.cpu().tolist()
+    return {"cycles": {k: st[i][0] / st[i][1]
+                       for i, k in enumerate(cm.CLASSES)},
+            "kernel_mhz": st[7][0] / max(st[7][1], 1) * 1e3}
+
+
+def _walk_report(kind: str, longest=None):
+    """The report of walk `kind`; `longest()` gives the steps of each
+    grid step's longest chain where they are not the steps it took (d,
+    d_warp: the most of its 8 chains)."""
+    def report(stats, ms: float, floor=None) -> dict:
+        taken, cycles = (t.cpu() for t in stats)
+        total = int(taken.sum())
+        chains = taken if longest is None else longest()
+        chain = int(chains.max())
+        # the function needs the bytes its chains visit, ns and acc
+        b_ms, by = cm.bound(total + 8 * ROWS)
+        return {"steps": total, "longest_chain": chain,
+                "ns_per_iter": ms * 1e6 / max(total, 1),
+                "ns_per_step": ms * 1e6 / max(chain, 1),
+                "cycles_per_step": float((cycles.to(torch.float64)
+                                          / taken.clamp(min=1)).mean()),
+                "bound_ms": b_ms, "bound_by": by,
+                **cm.chain_fields(CHAINS[kind], chain, ms, floor,
+                                  cycles[chains == chain].max())}
+    return report
+
+
+def _burn_report(kind: str):
+    def report(stats, ms: float, floor=None) -> dict:
+        st = stats.cpu().to(torch.float64)
+        total = int(st[:, 1].sum())
+        chain = int(st[:, 1].max())       # every lane or CTA runs one
+        b_ms, by = cm.bound(4 + 4 * st.shape[0], 2.0 * total)
+        return {"steps": total, "longest_chain": chain,
+                "ctas": int(st[:, 2].max()) + 1,
+                "ns_per_iter": ms * 1e6 / max(total, 1),
+                "ns_per_step": ms * 1e6 / max(chain, 1),
+                "cycles_per_step": float((st[:, 0] / st[:, 1].clamp(min=1))
+                                         .mean()),
+                "bound_ms": b_ms, "bound_by": by,
+                **cm.chain_fields(CHAINS[kind], chain, ms, floor,
+                                  st[st[:, 1] == chain, 0].max())}
+    return report
 
 
 def bodies(grid: int = ROWS) -> list[cm.Body]:
@@ -251,11 +391,12 @@ def bodies(grid: int = ROWS) -> list[cm.Body]:
     for name, (kind, replaces) in BODIES.items():
         if kind in BURNS:
             def run(kind=kind):
-                got, cycles = burn(x, kind)
-                return (got,), cycles
+                got, stats = burn(x, kind)
+                return (got,), stats
             out.append(cm.Body(
-                name, replaces, run, lambda: (burn_plain(x),), _burn_report,
-                {"steps": BURN_STEPS, "grid": BURN_GRID}))
+                name, replaces, run, lambda: (burn_plain(x),),
+                _burn_report(kind), {"steps": BURN_STEPS,
+                                     "grid": BURN_GRID}))
             continue
         g = ROWS if name == "P2 k_smem" else grid
 
@@ -265,11 +406,26 @@ def bodies(grid: int = ROWS) -> list[cm.Body]:
 
         def plain(kind=kind, g=g):
             return walk_plain(words, ns, kind, grid=g)
+
+        def longest(kind=kind, g=g):
+            return longest_chains(words.cpu(), ns.cpu(), kind, grid=g)
         out.append(cm.Body(
-            name, replaces, run, plain, _walk_report,
+            name, replaces, run, plain,
+            _walk_report(kind, longest if kind in ("d", "d_warp") else None),
             {"steps": E_STEPS, "grid": g} if kind == "e"
             else {"n": N_BYTES, "grid": g}))
     return out
+
+
+def _latency_cli() -> int:
+    """--latency: one JSON line of the latency build's prices."""
+    if not torch.cuda.is_available():
+        print("walk_probe: no CUDA device", file=sys.stderr)
+        return 2
+    from lz4_tpu_torch.probes._timing import card
+    print(json.dumps({"probe": "latency", "card": card(), "steps": LAT_STEPS,
+                      **asdict(cm.floor())}), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -277,7 +433,11 @@ def main(argv=None) -> int:
     ap.add_argument("--grid", type=int,
                     default=int(os.environ.get("LZ4_TPU_P3_GRID", ROWS)))
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--latency", action="store_true",
+                    help="print the latency build's prices only")
     args = ap.parse_args(argv)
+    if args.latency:
+        return _latency_cli()
     return cm.cli("walk_probe", LIB, lambda: bodies(args.grid),
                   lambda: launches, args.runs, grid=args.grid)
 

@@ -664,11 +664,16 @@ def test_walk_probe_matches_plain_at_full_size(cuda, variant, n):
 @pytest.mark.parametrize("mode", ["arbitrary", "parallel"])
 def test_burn_probe_matches_plain(cuda, mode):
     """__fmul_rn / __fadd_rn: the float32 rounding of the plain version,
-    bit for bit."""
+    bit for bit; "arbitrary" runs the 16 grid steps on one CTA (its
+    lanes), "parallel" on 16 CTAs."""
     x = torch.tensor([0.75], dtype=torch.float32, device=cuda)
-    got, cycles = walk_probe.burn(x, mode, steps=2048)
+    got, stats = walk_probe.burn(x, mode, steps=2048)
     assert torch.equal(got.cpu(), walk_probe.burn_plain(x.cpu(), steps=2048))
-    assert cycles.numel() == (1 if mode == "arbitrary" else 16)
+    st = stats.cpu()
+    assert st.shape == (16, 3) and bool((st[:, 0] > 0).all())
+    assert st[:, 1].tolist() == [2048] * 16
+    assert st[:, 2].tolist() == ([0] * 16 if mode == "arbitrary"
+                                 else list(range(16)))
 
 
 @pytest.mark.parametrize("body", list(gather_probe.VARIANTS))
@@ -740,6 +745,28 @@ def test_lane_probe_full_int32_range(cuda):
     assert torch.equal(lane_probe.gather("2step", w, w).cpu(),
                        lane_probe.gather("2step", src[:8], src[:8],
                                          device="cpu"))
+
+
+def test_onehot_select_cycles_a_step(cuda):
+    """The onehot body is one indexed load a step now, not 512 loads and
+    multiplies: under 200 SM cycles a step at nit 4096 (nit / 4 steps)."""
+    src, _ = lane_probe.inputs()["t_onehot"]
+    got, stats = lane_probe.loop("onehot", torch.from_numpy(src).to(cuda),
+                                 4096 // 4)
+    want, _ = lane_probe.loop("onehot", src, 4096 // 4, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    st = stats.cpu()
+    assert bool((st[:, 0] / st[:, 1] < 200).all()), st.tolist()
+
+
+def test_latency_build_chains(cuda):
+    """Each chain of the latency build reports a positive latency an
+    instruction, and the launch a positive clock; `latencies` raises
+    where a chain's result differs from its host replay."""
+    lat = walk_probe.latencies()
+    assert set(lat["cycles"]) == set(walk_probe.cm.CLASSES)
+    assert all(v > 0 for v in lat["cycles"].values()), lat
+    assert lat["kernel_mhz"] > 0
 
 
 INDEX_KINDS = ("random", "out-of-range", "negative", "full")

@@ -10,7 +10,9 @@ sizes: B 2 and R 64 for `tools/pallas_probe.py` (hops 512 steps), n 4096
 bytes and e 512 steps for the walks, 4096 steps of the burn loop, NIT 64
 and rows up to 512 for `tools/session_r4probe2.py`; beside them the walks
 at the tool's counts and over the whole row, and the wave step past the
-wrap of its history.
+wrap of its history. Beside them, the identity the card's onehot body
+rests on (the one-hot sum is a row select) and the reports' chain-bound
+arithmetic on synthetic stats.
 
 Tolerance: exact for every int32 body. The burn loop: the port rounds
 each multiply and add to float32 (as its kernel does with `__fmul_rn` and
@@ -29,6 +31,7 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from lz4_tpu_torch.probes import _common as cm  # noqa: E402
 from lz4_tpu_torch.probes import gather_probe, lane_probe  # noqa: E402
 from lz4_tpu_torch.probes import walk_probe  # noqa: E402
 
@@ -243,6 +246,22 @@ def test_walk_steps_match_a_host_replay(walk_inputs):
     d, dtaken, _ = walk_probe.walk(words, ns, "d", device="cpu")
     dw, dwtaken, _ = walk_probe.walk(words, ns, "d_warp", device="cpu")
     assert torch.equal(d, dw) and torch.equal(dtaken, dwtaken)
+    # the longest chain a chain bound prices: the walk itself for a, the
+    # most of the 8 segments' walks for d and d_warp
+    w, n = (torch.from_numpy(a) for a in walk_inputs)
+    assert torch.equal(walk_probe.longest_chains(w, n, "a", grid=8), taken)
+    seg = N_CUT // 8
+    for i in range(words.shape[0]):
+        most = 0
+        for k in range(8):
+            p, steps = k * seg, 0
+            while p < (k + 1) * seg:
+                p += 1 + ((int(words[i][p // 4]) >> (8 * (p % 4))) & 3)
+                steps += 1
+            most = max(most, steps)
+        for v in ("d", "d_warp"):
+            assert int(walk_probe.longest_chains(w, n, v, grid=8)[i]) \
+                == most
 
 
 def test_walk_clamps_n_to_the_row():
@@ -559,6 +578,23 @@ def test_lane_loop_plain_matches_tpu_kernel(lane_inputs, body):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("seed", [14, 16])
+def test_onehot_is_the_row_select_of_a0_big(seed):
+    """The identity the card's onehot body rests on: b_onehot's one-hot
+    multiply and sum over 512 rows is the row select of mk_a0_big(512),
+    over the full int32 range; each plain body is also held to its TPU
+    body."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(-2**31, 2**31, (512, 128), dtype=np.int32)
+    onehot = lane_probe.loop_plain("onehot", torch.from_numpy(src), 16)
+    select = lane_probe.loop_plain("a0_big", torch.from_numpy(src), 16)
+    assert torch.equal(onehot, select)
+    np.testing.assert_array_equal(onehot.numpy(),
+                                  _loop_tpu(b_onehot, src, 16))
+    np.testing.assert_array_equal(select.numpy(),
+                                  _loop_tpu(mk_a0_big(512), src, 16))
+
+
 def test_lane_loop_wraps_like_int32():
     """Sources over the whole int32 range: acc + i and the one-hot sum
     wrap as jnp's int32 does."""
@@ -649,6 +685,143 @@ def test_wave_negative_t_floor_mod_and_shift_wrap():
         t = np.where(t & 1, t + g1, t - g0)
         t = (t + 2**31) % 2**32 - 2**31
     assert (t < 0).any()
+
+
+# ------------------------------------------- the reports' chain bounds
+
+FLOOR = cm.Floor({k: float(v) for k, v in zip(
+    cm.CLASSES, (30, 40, 250, 4, 5, 4, 25))}, 1500.0)
+
+
+def _hops_stats():
+    d = gather_probe.inputs(b=2, r=64)
+    out, _ = gather_probe.gather("hops", d["nm"], d["ml"], steps=512,
+                                 device="cpu")
+    touches = gather_probe.hop_first_touches(torch.from_numpy(d["ml"]),
+                                             out)
+    cold = int(touches.max())
+    # the measured cycles of the block with the most first touches (the
+    # slowest where blocks tie)
+    cycles = max(c for c, t in zip((70_000, 80_000), touches.tolist())
+                 if t == cold)
+    stats = torch.tensor([[70_000, 512], [80_000, 512]])
+    return (stats, out), d["ml"], 512, {"ldg_l2": cold / 512,
+                                        "ldg_l1": 2 - cold / 512}, cycles
+
+
+def _report_case(case):
+    """(report, stats, longest chain, its instructions a step, the SM
+    cycles measured on it) of a body on synthetic stats."""
+    if case in ("burn-arbitrary", "burn-parallel"):
+        mode = case.split("-")[1]
+        ctas = torch.zeros(16) if mode == "arbitrary" else torch.arange(16)
+        cycles = torch.full((16,), 1_700_000)
+        cycles[3] = 1_750_000                     # the slowest lane
+        stats = torch.stack([cycles, torch.full(
+            (16,), walk_probe.BURN_STEPS), ctas.long()], 1)
+        return (walk_probe._burn_report(mode), stats, walk_probe.BURN_STEPS,
+                {"fp32": 2}, 1_750_000)
+    if case == "walk-a":
+        taken = torch.tensor([100, 300, 200])
+        return (walk_probe._walk_report("a"), (taken, taken * 54), 300,
+                walk_probe.CHAINS["a"], 300 * 54)
+    if case == "walk-d":
+        # the grid step whose longest chain is longest, not the one that
+        # took the most steps of all its chains
+        taken = torch.tensor([900, 800])
+        return (walk_probe._walk_report("d", lambda: torch.tensor([
+            101, 120])), (taken, taken * 25), 120, walk_probe.CHAINS["d"],
+            800 * 25)
+    if case == "hops":
+        stats, ml, steps, per, cycles = _hops_stats()
+        rep = gather_probe._chain_report("hops", torch.from_numpy(ml))
+        return (rep, stats, steps, {**gather_probe.CHAINS["hops"], **per},
+                cycles)
+    if case == "chase":
+        stats = torch.tensor([[9_000, 8], [9_500, 8]])
+        return (gather_probe._chain_report("chase"), stats, 8,
+                {**gather_probe.CHAINS["chase"], "ldg_l2": 1 / 8,
+                 "ldg_l1": 2 - 1 / 8}, 9_500)
+    body = case.split("-")[1]
+    steps = lane_probe.NIT // lane_probe.BODIES[body][3]
+    kind = lane_probe.BODIES[body][1] or "wave"
+    return (lane_probe._report(body, lane_probe.NIT),
+            torch.tensor([[53 * steps, steps], [54 * steps, steps]]), steps,
+            lane_probe.CHAINS[kind], 54 * steps)
+
+
+@pytest.mark.parametrize("case", [
+    "burn-arbitrary", "burn-parallel", "walk-a", "walk-d", "hops", "chase",
+    "lane-t_onehot", "lane-t_a0_512", "lane-t_base", "lane-t_wave"])
+def test_chain_report_arithmetic(case):
+    """A body's chain bound on synthetic stats: the longest chain, its
+    cycles (instructions a step by class at the floor's prices, times the
+    chain's steps), its ms at the floor's clock and its share of the
+    body's ms; the burn loop's chain is its 200,000 steps in both modes
+    (16 lanes of one CTA or 16 CTAs). Beside them the cycles its clock64
+    measured on the longest chain (the slowest where chains tie) and the
+    bound's share of them."""
+    report, stats, chain, per_step, cycles = _report_case(case)
+    ms = 0.25
+    r = report(stats, ms, FLOOR)
+    step = sum(n * FLOOR.cycles[k] for k, n in per_step.items())
+    assert r["longest_chain"] == chain
+    assert r["chain_cycles_per_step"] == pytest.approx(step, rel=1e-12)
+    assert r["chain_bound_cycles"] == pytest.approx(step * chain,
+                                                    rel=1e-12)
+    assert r["chain_bound_ms"] == pytest.approx(step * chain / 1.5e6,
+                                                rel=1e-12)
+    assert r["chain_share"] == pytest.approx(r["chain_bound_ms"] / ms,
+                                             rel=1e-12)
+    assert r["ns_per_step"] == pytest.approx(ms * 1e6 / chain, rel=1e-12)
+    assert r["longest_chain_cycles"] == cycles
+    assert r["chain_cycles_share"] == pytest.approx(
+        step * chain / cycles, rel=1e-12)
+    if case.startswith("burn"):
+        assert r["cycles_per_step"] == pytest.approx(
+            (15 * 1_700_000 + 1_750_000) / 16 / walk_probe.BURN_STEPS,
+            rel=1e-12)
+        assert r["ctas"] == (1 if case == "burn-arbitrary" else 16)
+        assert r["steps"] == 16 * walk_probe.BURN_STEPS
+    # without a floor the report has no chain bound
+    assert "chain_share" not in report(stats, ms, None)
+
+
+@pytest.mark.parametrize("chain", ["lds", "l1", "l2", "imad", "fp32",
+                                   "shfl"])
+def test_latency_sink_replay(chain):
+    """The host replay the latency kernel's chains are held to, against
+    closed forms: the rings are one cycle through all their entries, the
+    LDS chain adds 97 words a step mod 1024, IMAD x = 3x + z mod 2^32, the
+    FMUL-FADD chain in float32 by torch ops, the shuffle swaps lanes 0
+    and 1 every step."""
+    steps = 40
+    n = 3 * steps
+    l1, l2 = (walk_probe._ring(k, "cpu", seed)
+              for seed, k in ((1, 32), (2, 256)))
+    sink = walk_probe.latency_sink(l1, l2, steps)
+    if chain in ("l1", "l2"):
+        ring = l1 if chain == "l1" else l2
+        k = ring.numel() // 16
+        seen = {walk_probe._ring_walk(ring, i) for i in range(k)}
+        assert len(seen) == k
+        assert walk_probe._ring_walk(ring, k) == ring.data_ptr()
+        want = walk_probe._ring_walk(ring, n % k) & 0xFFFFFFFF
+        assert sink[1 if chain == "l1" else 2] == want
+    elif chain == "lds":
+        assert sink[0] == (97 * n % 1024) * 4
+    elif chain == "imad":
+        z = walk_probe.LAT_Z
+        assert sink[4] == (3**n * z + z * (3**n - 1) // 2) % 2**32
+    elif chain == "fp32":
+        f = torch.tensor(1.0, dtype=torch.float32)
+        a = torch.tensor(1.000001, dtype=torch.float32)
+        for _ in range(n):
+            f = f * a + torch.tensor(0.5, dtype=torch.float32)
+        assert sink[5] == int(f.view(torch.int32)) & 0xFFFFFFFF
+    else:
+        assert sink[6] == 0 and walk_probe.latency_sink(
+            l1, l2, steps + 1)[6] == walk_probe.LAT_Z
 
 
 @pytest.mark.parametrize("fn,args", [
