@@ -1957,8 +1957,10 @@ def phase_probes():
     those its timing made). The chain bodies' bounds are priced by the
     latency build (`walk_probe.latencies`) at the SM clock nvidia-smi reads
     while the card is busy, both taken before the bodies run, and each is
-    held to the cycles its longest chain took. Returns the kernels line's
-    entries and the {"chain_bounds": ...} line."""
+    held to the cycles its longest chain took; P1 chase's throughput bound
+    (`gather_probe.chase_throughput`) to the cycles its blocks took.
+    Returns the kernels line's entries and the {"chain_bounds": ...}
+    line."""
     floor = probe_floor()
     log("probe chain prices (latency build, SM cycles an instruction on "
         f"chains of {walk_probe.LAT_STEPS}): "
@@ -1991,6 +1993,10 @@ def phase_probes():
                    f"measured (share {e['chain_share']:.3f} of ms, "
                    f"{e['chain_cycles_share']:.3f} of its cycles)"
                    if "chain_bound_ms" in e else "")
+                + (f"; throughput bound {e['throughput_bound_ms']:.6f} ms "
+                   f"(share {e['throughput_share']:.3f} of ms, "
+                   f"{e['throughput_cycles_share']:.3f} of its cycles)"
+                   if "throughput_bound_ms" in e else "")
                 + f"; plain {e['plain_ms']:.1f} ms, "
                 + ("== plain" if e["same_as_plain"] else "DIFFERS")
                 + f" at {e['count']}")
@@ -2002,16 +2008,20 @@ def phase_probes():
     # a chain bound is a least time: above the cycles its chain took, a
     # SASS count in CHAINS or a price is wrong (the margin is the spread
     # of the latency build's prices between calls, 2.6% at most)
-    over = {e["name"]: e["chain_cycles_share"] for e in entries
-            if e.get("chain_cycles_share", 0.0) > 1.03}
+    # the throughput bound (k_chase) is a least time too
+    over = {e["name"]: e[k] for e in entries
+            for k in ("chain_cycles_share", "throughput_cycles_share")
+            if e.get(k, 0.0) > 1.03}
     if over:
-        raise AssertionError(f"chain bounds above the cycles their chains "
-                             f"took: {over}")
+        raise AssertionError(f"chain or throughput bounds above the cycles "
+                             f"their kernels took: {over}")
     keys = ("ms", "cycles_per_step", "longest_chain", "chain",
             "chain_cycles_per_step", "chain_bound_cycles", "chain_bound_ms",
-            "chain_share", "longest_chain_cycles", "chain_cycles_share")
+            "chain_share", "longest_chain_cycles", "chain_cycles_share",
+            "throughput_bound_cycles", "throughput_bound_ms",
+            "throughput_share", "throughput_cycles_share")
     chains = {**asdict(floor), "bodies": {
-        e["name"]: {k: e[k] for k in keys}
+        e["name"]: {k: e[k] for k in keys if k in e}
         for e in entries if "chain_share" in e}}
     return entries, {"chain_bounds": chains}
 

@@ -24,14 +24,24 @@
 // is 4 KB to 16 MB (4-256 KB at the tool's 8-512 rows) and stays in L1/L2
 // after its first touch, so no CTA waits at a barrier.
 //
-// The loops (10-15) and the wave (20) measure latency floors of one
-// lane's dependent steps, so they keep a lane's column in shared memory:
-// the 128 lanes are split over CTAs until a CTA's columns fit, L =
-// min(128, 32768 / rows) lanes a CTA (128 KB at most: (512, 128) is 2
-// CTAs of 64 lanes, (4096, 128) 16 CTAs of 8). Each CTA also keeps its
-// own copy of the 4 KB src[:8, :], which the axis-1 and two-step steps
-// read across lanes. One thread carries one lane: its 8 rows in
-// registers.
+// The loops (10-15) and the wave (20) measure latency floors of
+// dependent steps. Variants 10-12 (base, a0_8, a1_8) advance the 8 rows of
+// a lane as 8 independent chains, which the TPU ran as the sublanes of one
+// vreg; here each thread carries one (row, lane) chain in a register
+// (`chain_kernel`): CTA r takes row r, its thread t lane t, so a warp is 32
+// consecutive lanes of one row and 8 CTAs of 128 threads (one warp a
+// scheduler on each of 8 SMs) carry the 1024 chains. A warp's a0_8 loads
+// then read one column each (s8[row * 128 + c]), 32 lanes in 32 banks
+// whatever rows the data picks; a1_8's read a data-dependent lane of the
+// row, random banks, so their bank conflicts are in the function. Each
+// CTA keeps its own copy of the 4 KB src[:8, :].
+// Variants 13-15 and the wave pick one word for all 8 rows from row 0, so
+// they are one chain a lane by construction (`loop_kernel`, `wave_kernel`):
+// they keep a lane's column in shared memory, the 128 lanes split over
+// CTAs until a CTA's columns fit, L = min(128, 32768 / rows) lanes a CTA
+// (128 KB at most: (512, 128) is 2 CTAs of 64 lanes, (4096, 128) 16 CTAs
+// of 8), each CTA with its own copy of src[:8, :] for the two-step steps.
+// One thread carries one lane.
 //
 // Variants (`variant`; rows a power of two, 8 for 1, 2, 10-13 and 20):
 //   0 a0:    out[r, c] = src[idx[r, c] mod rows, c];
@@ -39,9 +49,9 @@
 //   2 2step: out[r, c] = src[(w >> 7) mod 8, w mod 128], w = idx[0, c]
 //            (floor division and floor mod, as jnp's // and %);
 //   10-15 the loop kernel over `nit` steps, acc = src[:8, :] at first,
-//         then acc = body(acc, i): 10 base, 11 a0_8, 12 a1_8, 13 2step,
-//         14 a0_big (rows 64, 512, 4096 in the probe), 15 onehot (rows
-//         512; see below);
+//         then acc = body(acc, i): 10 base, 11 a0_8, 12 a1_8 (these three
+//         read src[:8, :] only), 13 2step, 14 a0_big (rows 64, 512, 4096
+//         in the probe), 15 onehot (rows 512; see below);
 //   20 wave: wave_kern's mock row step over `nit` steps with a 512-row
 //         history per lane. The TPU's scratch starts undefined (the
 //         interpreter reads INT32_MIN); the port zero-fills it.
@@ -57,16 +67,18 @@
 // could not trust. Exactly one term is not zero, so the sum is the row
 // select src[(acc[0][c] + i) & 511][c], which Hopper does with one
 // indexed load from the lane's column in shared memory: the step of
-// a0_big at 512 rows. Variant 15 is that select, so the probe reads
-// Hopper's cost of the select the TPU built from a one-hot product.
+// a0_big at 512 rows. Variant 15 launches variant 14's kernel, so the
+// probe reads Hopper's cost of the select the TPU built from a one-hot
+// product.
 //
 // What bounds them: the gathers move 12 bytes a word (idx and src in, out
 // out): 12 KB at 8 rows, 0.77 MB at 512, a few microseconds of launch and
 // one pass over the card at most, so the host's call dominates. The loops
-// and the wave are latency-bound: a step is one dependent chain a lane
-// (some ALU, a shared-memory load, an xor), so more threads a lane would
-// gain nothing; the bytes are 4 KB to 2 MB read once and 4 KB written.
-// stats[cta] = (SM cycles of thread 0's loop, steps).
+// and the wave are latency-bound: a step is one dependent chain (some ALU,
+// a shared-memory load, an xor) of a (row, lane) in 10-12, of a lane in
+// 13-15 and 20; the bytes are 4 KB to 2 MB read once and 4 KB written.
+// stats[cta] = (SM cycles of the CTA's longest chain, steps): the most of
+// its warps' lane-0 clocks in 10-12, thread 0's elsewhere.
 
 #include "pyentry.h"  // first: Python.h precedes the system headers
 
@@ -82,6 +94,8 @@ constexpr int kShareWords = 32768;          // 128 KB of a CTA's columns
 constexpr int kS8Words = 8 * kLanes;
 constexpr int kMaxSmem = (kShareWords + kS8Words) * 4;
 constexpr int kLoadThreads = 256;
+constexpr int kRows = 8;                    // the chains' rows (10-12)
+constexpr int kRowThreads = kLanes;         // a CTA a row, a thread a lane
 constexpr int kGatherThreads = 256;
 constexpr int kWaveRows = 512;
 
@@ -161,29 +175,77 @@ __global__ void __launch_bounds__(kGatherThreads)
   store4<kVec>(out + e, v);
 }
 
+__device__ __forceinline__ uint32_t word_at(const char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The value of x, hidden from the compiler: keeps it from folding
+// (acc << 9) + (i << 9) back into (acc + i) << 9, two instructions on the
+// chain where LEA takes one
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm("" : "+r"(x));
+  return x;
+}
+
+// Variants 10-12: thread t of CTA r carries the chain of row r, lane t
+// (`lane_probe.chain_of`). The loads take byte offsets into s8 built on
+// the chain by one LEA and one LOP3: a0_8 ((acc << 9) + 512 i) & 0xE00 |
+// 4 c, its row's 512 bytes and the lane's word; a1_8 ((acc << 2) + 4 i) &
+// 0x1FC, the word in row r, whose start 512 r nvcc adds with an IMAD
+// (the bits are disjoint). Those two loops run one step an iteration, so
+// no unrolled step adds its offset on the chain.
+template <int V>
+__global__ void __launch_bounds__(kRowThreads)
+    chain_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out,
+                 long long* __restrict__ stats, int nit) {
+  __shared__ uint32_t s8[kS8Words];
+  __shared__ long long warp_cycles[kRowThreads / 32];
+  for (int i = threadIdx.x; i < kS8Words; i += kRowThreads)
+    s8[i] = static_cast<uint32_t>(src[i]);
+  __syncthreads();
+  const int r = blockIdx.x, c = threadIdx.x;
+  const char* s8b = reinterpret_cast<const char*>(s8);
+  const uint32_t c4 = 4u * c, r512 = 512u * r;
+  const uint32_t n = static_cast<uint32_t>(nit);
+  uint32_t acc = s8[r * kLanes + c];
+  const long long t0 = clock64();
+  if (V == 10) {                                             // b_base
+    for (uint32_t i = 0; i < n; ++i) acc ^= (acc + i) & 7;
+  } else if (V == 11) {                                      // b_a0_8
+#pragma unroll 1
+    for (uint32_t i = 0, i9 = 0; i < n; ++i, i9 += 512)
+      acc ^= word_at(s8b + ((((acc << 9) + opaque(i9)) & 0xE00u) | c4));
+  } else {                                                   // b_a1_8
+#pragma unroll 1
+    for (uint32_t i = 0, i4 = 0; i < n; ++i, i4 += 4)
+      acc ^= word_at(s8b + ((((acc << 2) + opaque(i4)) & 0x1FCu) | r512));
+  }
+  const long long t1 = clock64();
+  out[r * kLanes + c] = static_cast<int32_t>(acc);
+  if (!(c & 31)) warp_cycles[c / 32] = t1 - t0;
+  __syncthreads();
+  if (c == 0) {
+    long long most = warp_cycles[0];
+#pragma unroll
+    for (int w = 1; w < kRowThreads / 32; ++w)
+      most = warp_cycles[w] > most ? warp_cycles[w] : most;
+    stats[2 * r] = most;
+    stats[2 * r + 1] = nit;
+  }
+}
+
+// Variants 13-15: row 0 of acc picks the word all 8 rows take
 template <int V>
 __device__ inline void loop_body(const uint32_t* s, const uint32_t* s8,
                                  uint32_t (&acc)[8], uint32_t i, int rows,
                                  int L, int cl) {
-  if (V == 10) {                                   // b_base
+  uint32_t g;
+  if (V == 13)                                     // b_2step
+    g = two_step(s8, (acc[0] + i) & 1023);
+  else                           // 14 mk_a0_big; 15 b_onehot, a select
+    g = s[((acc[0] + i) & (rows - 1)) * L + cl];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] ^= (acc[r] + i) & 7;
-  } else if (V == 11) {                            // b_a0_8
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] ^= s[((acc[r] + i) & 7) * L + cl];
-  } else if (V == 12) {                            // b_a1_8
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      acc[r] ^= s8[r * kLanes + ((acc[r] + i) & (kLanes - 1))];
-  } else if (V == 13) {                            // b_2step
-    const uint32_t g = two_step(s8, (acc[0] + i) & 1023);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] ^= g;
-  } else {                       // 14 mk_a0_big; 15 b_onehot, a select
-    const uint32_t g = s[((acc[0] + i) & (rows - 1)) * L + cl];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] ^= g;
-  }
+  for (int r = 0; r < 8; ++r) acc[r] ^= g;
 }
 
 template <int V>
@@ -266,7 +328,7 @@ __global__ void __launch_bounds__(kLoadThreads)
   }
 }
 
-std::atomic<unsigned long long> g_raised[7];
+std::atomic<unsigned long long> g_raised[3];
 
 // each kernel (and instantiation) raises its own limit once a device
 template <typename K>
@@ -320,8 +382,8 @@ LZ4T_GATHER_MODULE(lz4t_probe_lane, gather_valid, gather_launch,
 
 // The loops (10-15) and the wave (20); the gathers launch through the
 // Python entry above. src: int32[rows, 128]; out: int32[8, 128]; stats:
-// int64[ctas, 2] (ctas = 128 / lanes_per_cta(rows), 512 rows for 20).
-// Returns the launch's cudaError_t (0 on success).
+// int64[ctas, 2] (ctas = 8 for 10-12, else 128 / lanes_per_cta(rows), 512
+// rows for 20). Returns the launch's cudaError_t (0 on success).
 extern "C" int lz4t_probe_lane(const void* src, void* out, void* stats,
                                int rows, int variant, int nit,
                                void* stream) {
@@ -338,20 +400,25 @@ extern "C" int lz4t_probe_lane(const void* src, void* out, void* stats,
   const int threads = kLoadThreads;
   int e = 0;
   switch (variant) {
-#define LZ4T_LOOP(V, SLOT)                                                  \
+#define LZ4T_CHAIN(V)                                                       \
   case V:                                                                  \
-    if ((e = raise_smem(loop_kernel<V>, SLOT))) return e;                  \
-    loop_kernel<V><<<grid, threads, smem, st>>>(s, o, stt, rows, nit);     \
+    chain_kernel<V><<<kRows, kRowThreads, 0, st>>>(s, o, stt, nit);        \
     break;
-    LZ4T_LOOP(10, 0)
-    LZ4T_LOOP(11, 1)
-    LZ4T_LOOP(12, 2)
-    LZ4T_LOOP(13, 3)
-    LZ4T_LOOP(14, 4)
-    LZ4T_LOOP(15, 5)
-#undef LZ4T_LOOP
+    LZ4T_CHAIN(10)
+    LZ4T_CHAIN(11)
+    LZ4T_CHAIN(12)
+#undef LZ4T_CHAIN
+    case 13:
+      if ((e = raise_smem(loop_kernel<13>, 0))) return e;
+      loop_kernel<13><<<grid, threads, smem, st>>>(s, o, stt, rows, nit);
+      break;
+    case 14:
+    case 15:                     // onehot is a0_big's row select (above)
+      if ((e = raise_smem(loop_kernel<14>, 1))) return e;
+      loop_kernel<14><<<grid, threads, smem, st>>>(s, o, stt, rows, nit);
+      break;
     case 20:
-      if ((e = raise_smem(wave_kernel, 6))) return e;
+      if ((e = raise_smem(wave_kernel, 2))) return e;
       wave_kernel<<<grid, threads, smem, st>>>(s, o, stt, nit);
       break;
     default:

@@ -18,13 +18,23 @@
 //
 // Variants (`variant`):
 //   0 a: p += 1 + (byte & 3), acc += byte while p < n (the dependent
-//        load chain, k_smem and k_a);
-//   1 b: p += 3, the load beside the chain, not on it;
-//   2 c: byte = (p * 7) & 255, no load;
+//        load chain, k_smem and k_a), its exit tested every step as B2's
+//        parse tests its bounds every token;
+//   1 b: p += 3, the load beside the chain, not on it: its trip count,
+//        ceil(n / 3), is known before the loop, so it runs blocks of U = 8
+//        steps whose loads are off every chain and can be in flight
+//        together, their bytes joining acc two an IADD3, then the last
+//        steps one by one;
+//   2 c: byte = (p * 7) & 255, no load; a step advances p by 1-4, so
+//        while p + 4 (U - 1) < n the next U steps all run: blocks of U
+//        steps with one exit test each, then the tested loop;
 //   3 d: one thread carrying 8 chains, chain k over [k * seg, (k+1) *
 //        seg), seg = n / 8, each advancing while inside its segment (the
 //        ILP answer); as k_d, each chain loads at every step, so the 8
-//        loads of a step are in flight together;
+//        loads of a step are in flight together. While every chain has
+//        p_k + 4 (U - 1) < its end, blocks of U steps run all 8 chains
+//        without the guards (no select, clamp or `any`); the tails then
+//        run guarded;
 //   4 e: a fixed count of `steps`, p = (p + 1 + (byte & 3)) % 65536;
 //   5 d_warp: the port's own variant: d's 8 chains on 8 lanes of one
 //        warp, one chain a lane (Hopper's other answer), their sums
@@ -64,6 +74,13 @@
 //   stats[k] = (SM cycles, instructions) of class k; stats[7] = (SM
 //   cycles, globaltimer ns) of the launch, the SM clock it ran at. The
 //   rings are int64 words holding the address of the next.
+//
+// Two builds vary the loads a thread has in flight, each computing what
+// the default build computes (`walk_probe --inflight` times them in turns
+// with it): -DLZ4T_D_INFLIGHT=K (2 or 4; 8 is the default) runs d's
+// unguarded blocks on K chains at a time, a group after the other, where
+// the default runs all 8; -DLZ4T_B_PIPELINE issues b's loads of the next
+// block before it sums the current one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,6 +92,20 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxWords = 16640;           // the probe's 66,560-byte block
 constexpr int kMaxSmem = kMaxWords * 4;
+// U: the steps of b, c and d that run as a block, with one exit test; a
+// step advances p by at most 4 (`walk_probe.BLOCK`)
+constexpr uint32_t kBlock = 8;
+constexpr uint32_t kReach = 4 * (kBlock - 1);  // p's most a block's last step
+static_assert(kBlock == 8, "walk_b sums a block's 8 bytes as a tree");
+#ifndef LZ4T_D_INFLIGHT
+#define LZ4T_D_INFLIGHT 8
+#endif
+constexpr int kInflight = LZ4T_D_INFLIGHT;   // d's chains a block runs
+static_assert(kInflight > 0 && 8 % kInflight == 0, "8 chains in groups");
+
+__device__ __forceinline__ uint32_t sum8(const uint32_t (&b)[kBlock]) {
+  return ((b[0] + b[1]) + (b[2] + b[3])) + ((b[4] + b[5]) + (b[6] + b[7]));
+}
 
 __device__ __forceinline__ void walk_a(const uint8_t* sb, uint32_t n,
                                        uint32_t& acc, long long& steps) {
@@ -91,19 +122,52 @@ __device__ __forceinline__ void walk_a(const uint8_t* sb, uint32_t n,
 
 __device__ __forceinline__ void walk_b(const uint8_t* sb, uint32_t n,
                                        uint32_t& acc, long long& steps) {
-  uint32_t p = 0, a = 0, k = 0;
-  while (p < n) {
-    a += sb[p];
-    p += 3;
-    ++k;
+  const uint32_t count = (n + 2) / 3;          // p = 0, 3, ... while p < n
+  uint32_t a = 0, k = 0;
+  const uint8_t* q = sb;
+#ifdef LZ4T_B_PIPELINE
+  if (count >= kBlock) {
+    uint32_t b[kBlock];
+#pragma unroll
+    for (uint32_t j = 0; j < kBlock; ++j) b[j] = q[3 * j];
+    for (k = kBlock; k + kBlock <= count; k += kBlock) {
+      q += 3 * kBlock;
+      uint32_t c[kBlock];
+#pragma unroll
+      for (uint32_t j = 0; j < kBlock; ++j) c[j] = q[3 * j];
+      a += sum8(b);
+#pragma unroll
+      for (uint32_t j = 0; j < kBlock; ++j) b[j] = c[j];
+    }
+    a += sum8(b);
+    q += 3 * kBlock;
   }
+#else
+  for (; k + kBlock <= count; k += kBlock, q += 3 * kBlock) {
+    uint32_t b[kBlock];
+#pragma unroll
+    for (uint32_t j = 0; j < kBlock; ++j) b[j] = q[3 * j];
+    a += sum8(b);
+  }
+#endif
+  for (; k < count; ++k, q += 3) a += *q;
   acc = a;
-  steps = k;
+  steps = count;
 }
 
 __device__ __forceinline__ void walk_c(uint32_t n, uint32_t& acc,
                                        long long& steps) {
   uint32_t p = 0, a = 0, k = 0;
+  const uint32_t lim = n > kReach ? n - kReach : 0;  // p < lim: U steps run
+  while (p < lim) {
+#pragma unroll
+    for (uint32_t j = 0; j < kBlock; ++j) {
+      const uint32_t byte = (p * 7) & 255;
+      p += 1 + (byte & 3);
+      a += byte;
+    }
+    k += kBlock;
+  }
   while (p < n) {
     const uint32_t byte = (p * 7) & 255;
     p += 1 + (byte & 3);
@@ -116,7 +180,8 @@ __device__ __forceinline__ void walk_c(uint32_t n, uint32_t& acc,
 
 // As k_d: every chain loads at every step (its index clamped into the
 // row, where k_d's stays in SMEM) and advances only inside its segment,
-// so the 8 loads of a step do not wait for one another.
+// so the 8 loads of a step do not wait for one another. The unguarded
+// blocks read inside every segment (p_k < end_k <= n), so need no clamp.
 __device__ __forceinline__ void walk_d(const uint8_t* sb, uint32_t n,
                                        uint32_t last, uint32_t& acc,
                                        long long& steps) {
@@ -128,7 +193,30 @@ __device__ __forceinline__ void walk_d(const uint8_t* sb, uint32_t n,
     a[k] = 0;
   }
   uint32_t taken = 0;
-  bool any = seg > 0;
+  if (seg > kReach) {
+    const uint32_t lim = seg - kReach;   // chain k: p_k - k * seg < lim
+#pragma unroll
+    for (int g = 0; g < 8; g += kInflight) {
+      bool all = true;
+      while (all) {
+#pragma unroll
+        for (uint32_t j = 0; j < kBlock; ++j) {
+#pragma unroll
+          for (int k = g; k < g + kInflight; ++k) {
+            const uint32_t byte = sb[p[k]];
+            p[k] += 1 + (byte & 3);
+            a[k] += byte;
+          }
+        }
+        taken += kInflight * kBlock;
+#pragma unroll
+        for (int k = g; k < g + kInflight; ++k) all &= p[k] < k * seg + lim;
+      }
+    }
+  }
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) any |= p[k] < (k + 1) * seg;
   while (any) {
     uint32_t byte[8];
 #pragma unroll

@@ -89,6 +89,18 @@ REPLACES = {"lane": "tools/pallas_probe.py:78",
 #: hops' step (LOP3, IADD3, LEA, LEA.HI.X to the first load; IADD3,
 #: LEA.HI.X.SX32, ISETP.EX, SEL, LOP3, IADD3, LEA, LEA.HI.X to the second)
 CHAINS = {"chase": {"alu": 6}, "hops": {"alu": 12}}
+#: the least instructions a word of chase's function, whatever the body:
+#: the coalesced load, its predicate (ptr >= 0), the gather's address (one
+#: LEA from the word and the block's base), the predicated gather and the
+#: store. The upper clamp, the loop's count, the coalesced addresses and
+#: a round's barrier are left out (unrolling and immediate offsets can
+#: spread them thin), so no body can issue less
+CHASE_WORD_INSTRUCTIONS = 5
+#: a SM's rates (Hopper): 4 warp schedulers, each issuing one warp
+#: instruction a clock; the L1 / shared-memory data path of 32 banks of 4
+#: bytes a clock, which every load and store of a CTA passes
+WARP_INSTRUCTIONS_PER_CYCLE = 4
+L1_BYTES_PER_CYCLE = 128
 
 #: the library's Python entry (`csrc/pyentry.h`), once loaded
 _entry = None
@@ -242,6 +254,71 @@ def hop_first_touches(ml: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
                          for b in range(nb)])
 
 
+def chase_l1_bytes(p: torch.Tensor, rounds: int) -> torch.Tensor:
+    """int64[B, rounds]: the bytes each of chase's rounds moves through a
+    block's L1 data path on these inputs. A warp takes 32 consecutive
+    words at a time: a 128-byte load of them, one 32-byte sector for each
+    distinct sector its gathers read (only lanes whose word is >= 0
+    gather: the function reads nothing for the others) and a 128-byte
+    store."""
+    nb = p.shape[0]
+    n = p[0].numel()
+    ptr = p.reshape(nb, n).to(torch.int64)
+    out = []
+    for _ in range(rounds):
+        act = ptr >= 0
+        c = ptr.clamp(0, n - 1)
+        sec = torch.where(act, c >> 3, -1).reshape(nb, -1, 32)
+        sec = sec.sort(-1).values
+        new = (sec[..., 1:] != sec[..., :-1]) & (sec[..., 1:] >= 0)
+        sectors = new.sum((1, 2)) + (sec[..., 0] >= 0).sum(1)
+        out.append(n // 32 * 256 + 32 * sectors)
+        ptr = torch.where(act, ptr.gather(1, c), ptr)
+    return torch.stack(out, 1).cpu()
+
+
+def chase_throughput(p: torch.Tensor, rounds: int) -> torch.Tensor:
+    """float64[B]: the least SM cycles of each block's rounds by
+    throughput. Each round (all of a round's words are read before the
+    next round's) takes at least the larger of its least warp instructions
+    (`CHASE_WORD_INSTRUCTIONS` a word, 32 words a warp instruction) over
+    the 4 a clock the SM's schedulers take and its L1 bytes
+    (`chase_l1_bytes`) over the L1 data path's 128 a clock."""
+    n = p[0].numel()
+    instr = n / 32 * CHASE_WORD_INSTRUCTIONS / WARP_INSTRUCTIONS_PER_CYCLE
+    l1 = chase_l1_bytes(p, rounds).to(torch.float64) / L1_BYTES_PER_CYCLE
+    return l1.clamp(min=instr).sum(1)
+
+
+def _throughput_fields(p, rounds: int, stats, ms: float, floor) -> dict:
+    """chase's throughput bound beside its chain bound: the block with
+    the most cycles' least time (`throughput_bound_cycles`), in ms at the
+    floor's clock and as a share of `ms`, and `throughput_cycles_share`,
+    the highest of a block's bound over the cycles its clock64 took."""
+    cycles = stats[:, 0].cpu().to(torch.float64)
+    bound = chase_throughput(p, rounds)
+    at = int(cycles.argmax())
+    b_ms = float(bound[at]) / (floor.sm_mhz * 1e3)
+    return {"throughput_bound_cycles": float(bound[at]),
+            "throughput_bound_ms": b_ms,
+            "throughput_share": b_ms / ms if ms > 0 else float("inf"),
+            "throughput_cycles_share": float((bound / cycles).max())}
+
+
+def _chase_report(p):
+    """chase's report: its chain report (`_chain_report`) and, given a
+    floor, its throughput bound on its input `p` (`_throughput_fields`)."""
+    chain = _chain_report("chase")
+
+    def report(stats, ms: float, floor=None) -> dict:
+        r = chain(stats, ms, floor)
+        if floor is not None:
+            r.update(_throughput_fields(p, int(stats[:, 1].max()), stats,
+                                        ms, floor))
+        return r
+    return report
+
+
 def _chain_report(body: str, ml=None):
     words = B * R * C
 
@@ -299,7 +376,8 @@ def bodies() -> list[cm.Body]:
                                  else ROUNDS),)
         out.append(cm.Body(
             f"P1 k_{body}", REPLACES[body], run, plain,
-            _chain_report(body, d["ml"]),
+            _chase_report(d["chase"]) if body == "chase"
+            else _chain_report(body, d["ml"]),
             {"steps": STEPS} if body == "hops" else {"B": B, "R": R, "C": C},
             partial(torch.gather, *lib[body]) if body in lib else None,
             host=body in lib, flushed=body in lib))

@@ -33,16 +33,23 @@ launch through the library's CPython entry (`csrc/pyentry.h`): one C call
 checks the inputs, allocates the output with `torch.empty_like` and
 launches; where a check fails or the tensors sit off the current device
 it returns None and `gather` runs its Python checks (which raise) or
-enters the device. The loops and the wave keep a lane's column in shared
-memory, as their latency floors need, and launch through ctypes.
+enters the device. The loops and the wave launch through ctypes. In
+`base`, `a0_8` and `a1_8` the 8 rows of a lane are 8 independent chains,
+which the TPU ran as the sublanes of one vreg: each thread carries one
+(row, lane) chain, CTA r row r and its thread t lane t (`chain_of`), so a
+warp is 32 lanes of one row and the 1024 chains take 8 CTAs of 128
+threads, each with its own copy of src[:8, :] in shared memory. The other
+loops and the wave take one word for all 8 rows from row 0, one chain a
+lane: they keep a lane's column in shared memory, `lanes_per_cta(rows)`
+lanes a CTA.
 
 Each runs at the tool's counts (`--nit`, 65,536 as the tool's
 `LZ4_TPU_P42_NIT`), and the output of its last timed launch is held
 against its plain version on the same inputs (`probes/_common.measure`;
 the plain loops take a few torch ops a step, some seconds a body). It
 reports `ms` (`probes/_timing.cuda_ms`; `ms_back_to_back` beside it),
-`ns_per_step` (ms over the steps), `cycles_per_step` (clock64 of a CTA's
-first thread), for the loops and the wave the chain bound
+`ns_per_step` (ms over the steps), `cycles_per_step` (clock64 of CTA 0's
+longest chain over the steps), for the loops and the wave the chain bound
 (`_common.chain_fields`), for the gathers the host's and the card's time a call
 (`host_us`, `device_us`) and, for the gathers with indices in range,
 `torch.gather` (a0, a1) or `torch.take` (2step) of the same function on
@@ -76,18 +83,23 @@ SOURCE = "lz4_tpu_torch/csrc/probe_lane.cu"
 GATHERS = {"a0": 0, "a1": 1, "2step": 2}
 LOOPS = {"base": 10, "a0_8": 11, "a1_8": 12, "2step": 13, "a0_big": 14,
          "onehot": 15}
+#: the loops with one (row, lane) chain a thread, in CTAs of a row
+CHAIN_LOOPS = ("base", "a0_8", "a1_8")
+ROWS = 8
 WAVE = 20
 #: instructions a step on the longest chain, by class (`_common.CLASSES`),
 #: read from the SASS of each body's loop (`cuobjdump -sass` of the built
-#: library; nvcc unrolls the loops by 2 or 4, hence the fractions): base
-#: VIADD, LOP3; a0_8 VIADD, LOP3, IMAD, LEA, LDS, LOP3; a1_8 VIADD,
-#: IMAD.SHL, LOP3, LDS, LOP3; 2step LOP3, VIADD, LEA or IMAD.SHL, LOP3,
-#: LDS; a0_big and onehot LOP3, IADD3 or IMAD.IADD, LOP3, IMAD, LEA, LDS;
-#: wave the two-step fetch (VIADD, IMAD.SHL, VIADD, LOP3, LDS), the parse
-#: ALU (SHF, then 5 rounds of LOP3, IMAD.IADD, LOP3, ISETP, SEL,
-#: IMAD.IADD), the history gather (VIADD, IMAD.SHL, LOP3, IMAD.IADD, LEA,
-#: LDS) and the combine (LOP3, PRMT, LOP3, LOP3)
-CHAINS = {"base": {"alu": 2}, "a0_8": {"alu": 4, "imad": 1, "lds": 1},
+#: library; nvcc unrolls some loops by 2, 4 or 16, hence the fractions):
+#: base (one chain a thread) IADD3 or, one step in four, IMAD.IADD,
+#: then LOP3; a0_8 (one chain a thread) LEA, LOP3, LDS, LOP3; a1_8 (one
+#: chain a thread) LEA, LOP3, IMAD (the row's start), LDS, LOP3; 2step
+#: LOP3, VIADD, LEA or IMAD.SHL, LOP3, LDS; a0_big and onehot LOP3, IADD3
+#: or IMAD.IADD, LOP3, IMAD, LEA, LDS; wave the two-step fetch (VIADD,
+#: IMAD.SHL, VIADD, LOP3, LDS), the parse ALU (SHF, then 5 rounds of LOP3,
+#: IMAD.IADD, LOP3, ISETP, SEL, IMAD.IADD), the history gather (VIADD,
+#: IMAD.SHL, LOP3, IMAD.IADD, LEA, LDS) and the combine (LOP3, PRMT, LOP3,
+#: LOP3)
+CHAINS = {"base": {"alu": 1.75, "imad": 0.25}, "a0_8": {"alu": 3, "lds": 1},
           "a1_8": {"alu": 3, "imad": 1, "lds": 1},
           "2step": {"alu": 3.75, "imad": 0.25, "lds": 1},
           "a0_big": {"alu": 3.75, "imad": 1.25, "lds": 1},
@@ -128,9 +140,21 @@ launches = 0
 
 
 def lanes_per_cta(rows: int) -> int:
-    """Lanes a CTA of the loops and the wave takes: its columns of `rows`
-    rows fit in 128 KB."""
+    """Lanes a CTA of the row-0 loops and the wave takes: its columns of
+    `rows` rows fit in 128 KB."""
     return max(1, min(LANES, 32768 // rows))
+
+
+def chain_of(cta: int, thread: int) -> tuple[int, int]:
+    """The (row, lane) chain that `thread` of `cta` carries in the
+    `CHAIN_LOOPS`: CTAs of a row, 128 threads, one lane each."""
+    g = cta * LANES + thread
+    return g // LANES, g % LANES
+
+
+def loop_ctas(body: str, rows: int) -> int:
+    """The CTAs (stats rows) of loop `body` at `rows` rows."""
+    return ROWS if body in CHAIN_LOOPS else LANES // lanes_per_cta(rows)
 
 
 def _launch(variant: str, code: int, dev, src, out, stats, rows, nit):
@@ -200,8 +224,8 @@ def gather_plain(kind: str, src: torch.Tensor,
 def loop(body: str, src, nit: int, *, device=None):
     """`mk_loop`'s kernel: `nit` steps of acc = body(acc, i) from acc =
     src[:8, :]. src int32[rows, 128] (rows 8 but for a0_big and onehot).
-    Returns (acc int32[8, 128], stats int64[ctas, 2] = (SM cycles, steps)
-    on the card, else None)."""
+    Returns (acc int32[8, 128], stats int64[`loop_ctas`, 2] = (SM cycles
+    of each CTA's longest chain, steps) on the card, else None)."""
     if body not in LOOPS:
         raise ValueError(f"body must be one of {sorted(LOOPS)}")
     src = cm.as_input(src, device)
@@ -212,8 +236,8 @@ def loop(body: str, src, nit: int, *, device=None):
     if dev.type == "cpu":
         return loop_plain(body, src, nit), None
     out = torch.empty((8, LANES), dtype=torch.int32, device=dev)
-    stats = torch.empty((LANES // lanes_per_cta(rows), 2),
-                        dtype=torch.int64, device=dev)
+    stats = torch.empty((loop_ctas(body, rows), 2), dtype=torch.int64,
+                        device=dev)
     _launch(f"loop_{body}", LOOPS[body], dev, src, out, stats, rows, nit)
     return out, stats
 

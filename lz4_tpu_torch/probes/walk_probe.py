@@ -25,6 +25,15 @@ bodies (`walk`'s variants):
   its steps are independent) or as 16 CTAs (what "megacore" asked on the
   TPU).
 
+`a` tests its exit every step, as B2's parse tests its bounds every
+token. `b`, `c` and `d` take theirs off the chain: `b`'s trip count,
+ceil(n / 3), is known before it starts, so it runs blocks of `BLOCK`
+steps whose loads are in flight together; a step of `c` or `d` advances
+p by at most 4, so while p + 4 (`BLOCK` - 1) is inside (every chain's,
+for `d`), the next `BLOCK` steps run untested (`d`: without its
+per-chain guards), and a tested loop takes the rest (`walk_model`
+replays that control flow on the host).
+
 The CTA of grid step g walks row g % 8 (`--grid`, default
 `LZ4_TPU_P3_GRID` or 8, probe3's grid). Each body runs at the tool's
 counts, and the output of its last timed launch is held against its plain
@@ -47,6 +56,13 @@ less one of 4,096; each chain's result held against a host replay,
 the launch ran at (clock64 over globaltimer) and nvidia-smi's SM clock
 read while the card is busy. Every probe's chain bound is priced at
 these (`_common.floor`).
+
+`--inflight` times `d` and `b` on the builds of `INFLIGHT`, which vary
+the loads one thread has in flight (`d`'s blocks on 2, 4 or 8 of its
+chains at a time; `b`'s next block's loads before the current block's
+sum), in turns with the default build, and prints one JSON line of SM
+cycles a step of the longest chain and the static stall sum of each loop
+of the builds' SASS (`inflight`, `probes/sass.py`).
 
 On CPU tensors (or `device="cpu"`) `walk` and `burn` run the plain
 versions: torch ops over the grid's rows, a step at a time. The burn
@@ -77,9 +93,18 @@ LIB = "probe_walk"
 SOURCE = "lz4_tpu_torch/csrc/probe_walk.cu"
 
 WALKS = {"a": 0, "b": 1, "c": 2, "d": 3, "e": 4, "d_warp": 5}
+#: the steps of b, c and d that run as one block with one exit test
+#: (`kBlock` in the kernel)
+BLOCK = 8
 BURNS = {"arbitrary": 6, "parallel": 7}
 #: the latency build's defines and its chains' length
 LATENCY = ("LZ4T_PROBE_LATENCY",)
+#: the builds that vary the loads in flight, by body and name (the
+#: default build first): d's blocks on K of its 8 chains at a time, b's
+#: next block's loads before the current block's sum
+INFLIGHT = {"d": {"8": (), "4": ("LZ4T_D_INFLIGHT=4",),
+                  "2": ("LZ4T_D_INFLIGHT=2",)},
+            "b": {"in_order": (), "next_first": ("LZ4T_B_PIPELINE",)}}
 LAT_STEPS = 4096
 #: the latency kernel's y and z, as its launcher passes them
 LAT_Y, LAT_Z = 1, 0x9E3779B9
@@ -90,13 +115,17 @@ LAT_RINGS = (32, 32768)
 #: library): the loop-carried path from one step's position (or acc) to
 #: the next step's, through the compare that decides the loop's exit where
 #: that hangs on the data. a, d_warp: (IMAD.IADD,) LDS.U8, LOP3, IADD3,
-#: ISETP; b: VIADD and ISETP every 4 steps (the loads are off the chain);
-#: c: IMAD, LOP3, IADD3, ISETP; d, an iteration of its 8 chains: VIMNMX,
-#: LDS.U8, LOP3, VIADD, SEL, IMAD.IADD of the first chain, then the 8
-#: ISETPs that OR the chains' exits; e: LDS.U8, LOP3, IADD3, LOP3 (its
-#: count runs beside); burn: FMUL, FADD
+#: ISETP; e: LDS.U8, LOP3, IADD3, LOP3 (its count runs beside); burn:
+#: FMUL, FADD. The blocked walks, a block of 8 steps: b, acc's 4 IADD3s,
+#: each adding two bytes (the loads, the count and the exit test are off
+#: the chain); c, IMAD, LOP3, IMAD.IADD, then 7 x (IMAD, LOP3, IADD3),
+#: the VIADD that restores p + 1 and the exit's ISETP; d, a chain's
+#: LDS.U8, LOP3, IMAD.IADD, then 7 x (LDS.U8, LOP3, IADD3), the VIADD
+#: that restores p + 1 and one ISETP of the exit, an iteration of its 8
+#: chains being one step of each
 CHAINS = {"a": {"lds": 1, "alu": 3}, "b": {"alu": 0.5},
-          "c": {"imad": 1, "alu": 3}, "d": {"lds": 1, "alu": 12, "imad": 1},
+          "c": {"imad": 1.125, "alu": 2.125},
+          "d": {"lds": 1, "alu": 2.125, "imad": 0.125},
           "d_warp": {"imad": 1, "lds": 1, "alu": 3},
           "e": {"lds": 1, "alu": 3}, "arbitrary": {"fp32": 2},
           "parallel": {"fp32": 2}}
@@ -127,10 +156,11 @@ def inputs(rows: int = ROWS, words: int = WORDS, n: int = N_BYTES,
 
 
 def walk(words, ns, variant: str, *, grid: int | None = None,
-         steps: int = E_STEPS, device=None):
+         steps: int = E_STEPS, device=None, defines=()):
     """Walk row g % B for each grid step g (see the module docstring).
     words int32[B, W] (W <= 16640; variant e needs W >= 16384), ns
-    int32[B] (clamped to [0, 4 W]). Returns (acc int32[B], chain steps
+    int32[B] (clamped to [0, 4 W]); `defines` picks a build of the kernel
+    (`INFLIGHT`). Returns (acc int32[B], chain steps
     int64[grid], SM cycles int64[grid] or None on the CPU); rows no grid
     step walks hold 0."""
     global launches
@@ -158,7 +188,7 @@ def walk(words, ns, variant: str, *, grid: int | None = None,
     out = torch.zeros(B, dtype=torch.int32, device=dev)
     stats = torch.empty((grid, 2), dtype=torch.int64, device=dev)
     from lz4_tpu_torch import _build
-    fn = _build.load("probe_walk")
+    fn = _build.load("probe_walk", defines)
     rc = cm.launch(fn, dev, words.data_ptr(), ns.data_ptr(), out.data_ptr(),
                    stats.data_ptr(), B, W, grid, WALKS[variant], steps)
     cm.check_rc(rc, f"probe_walk {variant}")
@@ -226,6 +256,70 @@ def _walk_chains(words, ns, variant, *, grid, steps):
     out = torch.zeros(B, dtype=torch.int32, device=dev)
     out[rows] = cm.wrap32(acc.sum(1)).to(torch.int32)
     return out, taken
+
+
+def walk_model(row, n: int, variant: str, block: int = BLOCK):
+    """A host replay of the kernel's control flow for `b`, `c` and `d`
+    on one row (int32 words; n clamped as the kernel clamps it): blocks of
+    `block` steps with one exit test, then the tested loop, step for
+    step. Returns (acc uint32, chain steps, steps taken in blocks)."""
+    data = np.ascontiguousarray(row, dtype="<i4").view(np.uint8)
+    n = min(max(int(n), 0), data.size)
+    reach = 4 * (block - 1)
+    m32 = 0xFFFFFFFF
+    if variant == "b":
+        count = (n + 2) // 3
+        acc = k = 0
+        while k + block <= count:
+            acc += sum(int(data[3 * (k + j)]) for j in range(block))
+            k += block
+        blocked = k
+        while k < count:
+            acc += int(data[3 * k])
+            k += 1
+        return acc & m32, count, blocked
+    if variant == "c":
+        p = acc = k = 0
+        while p < n - reach:
+            for _ in range(block):
+                byte = (p * 7) & 255
+                p += 1 + (byte & 3)
+                acc += byte
+            k += block
+        blocked = k
+        while p < n:
+            byte = (p * 7) & 255
+            p += 1 + (byte & 3)
+            acc += byte
+            k += 1
+        return acc & m32, k, blocked
+    if variant != "d":
+        raise ValueError("walk_model replays b, c and d")
+    seg = n // 8
+    p = [k * seg for k in range(8)]
+    end = [(k + 1) * seg for k in range(8)]
+    a = [0] * 8
+    taken = 0
+    if seg > reach:
+        while True:                       # every chain: p_k + reach < end_k
+            for _ in range(block):
+                for k in range(8):
+                    byte = int(data[p[k]])
+                    p[k] += 1 + (byte & 3)
+                    a[k] += byte
+            taken += 8 * block
+            if not all(p[k] < end[k] - reach for k in range(8)):
+                break
+    blocked = taken
+    last = data.size - 1
+    while any(p[k] < end[k] for k in range(8)):
+        for k in range(8):
+            byte = int(data[min(p[k], last)])
+            if p[k] < end[k]:
+                p[k] += 1 + (byte & 3)
+                a[k] += byte
+                taken += 1
+    return sum(a) & m32, taken, blocked
 
 
 def burn(x, mode: str, *, steps: int = BURN_STEPS, grid: int = BURN_GRID,
@@ -428,6 +522,44 @@ def _latency_cli() -> int:
     return 0
 
 
+def inflight(turns: int = 2) -> dict:
+    """--inflight: each build of `INFLIGHT` on the probe's inputs at a grid
+    of 8, `turns` times over in turns (the builds in order, then in
+    reverse), each launch's acc and steps held to the plain version.
+    Returns, by body and build, its defines, the SM cycles a step of the
+    longest chain at each launch (d: an iteration of its 8 chains) and
+    the loops of its SASS with 8 loads or more (`sass.library_loops`:
+    instructions, loads, the static stall sum, the loads' barriers)."""
+    from lz4_tpu_torch import _build
+    from lz4_tpu_torch.probes import sass
+    w, n = inputs()
+    words, ns = torch.from_numpy(w).cuda(), torch.from_numpy(n).cuda()
+    out = {}
+    for kind, builds in INFLIGHT.items():
+        for defines in builds.values():
+            _build.build([LIB], defines)
+        want = walk_plain(words.cpu(), ns.cpu(), kind, grid=ROWS)
+        chains = (longest_chains(words.cpu(), ns.cpu(), kind, grid=ROWS)
+                  if kind == "d" else want[1])
+        chain = int(chains.max())
+        got = {name: [] for name in builds}
+        for t in range(2 * turns):
+            for name in (builds if t % 2 == 0 else reversed(builds)):
+                acc, taken, cycles = walk(words, ns, kind, grid=ROWS,
+                                          defines=builds[name])
+                if not (torch.equal(acc.cpu(), want[0])
+                        and torch.equal(taken.cpu(), want[1])):
+                    raise AssertionError(f"walk {kind} {name} != plain")
+                got[name].append(float(cycles.cpu()[chains == chain].max())
+                                 / chain)
+        out[kind] = {name: {"defines": list(builds[name]),
+                            "cycles_per_step": got[name],
+                            "loops": sass.library_loops(LIB, builds[name],
+                                                        "walk_kernel", 8)}
+                     for name in builds}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grid", type=int,
@@ -435,9 +567,20 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--latency", action="store_true",
                     help="print the latency build's prices only")
+    ap.add_argument("--inflight", action="store_true",
+                    help="time d and b on the builds that vary their "
+                    "loads in flight only")
     args = ap.parse_args(argv)
     if args.latency:
         return _latency_cli()
+    if args.inflight:
+        if not torch.cuda.is_available():
+            print("walk_probe: no CUDA device", file=sys.stderr)
+            return 2
+        from lz4_tpu_torch.probes._timing import card
+        print(json.dumps({"probe": "inflight", "card": card(),
+                          "bodies": inflight()}), flush=True)
+        return 0
     return cm.cli("walk_probe", LIB, lambda: bodies(args.grid),
                   lambda: launches, args.runs, grid=args.grid)
 

@@ -661,6 +661,66 @@ def test_walk_probe_matches_plain_at_full_size(cuda, variant, n):
     assert torch.equal(acc.cpu(), pacc) and torch.equal(taken.cpu(), ptaken)
 
 
+BLOCK_NS = [0, 1, 3, 7, 8, 4 * walk_probe.BLOCK - 1, 4 * walk_probe.BLOCK,
+            4 * walk_probe.BLOCK + 1, 65536, 66560, 10**6]
+
+
+@pytest.mark.parametrize("n", BLOCK_NS)
+@pytest.mark.parametrize("variant", ["b", "c", "d"])
+def test_blocked_walks_match_plain(cuda, variant, n):
+    """The blocked walks (one exit test a block of `BLOCK` steps) at the
+    edges of a block's reach, the tool's 65,536 bytes, the whole row and
+    past it: acc and each grid step's steps equal the plain version's and
+    the host replay of the kernel's control flow (`walk_model`)."""
+    w, _ = walk_probe.inputs(rows=2)
+    ns = np.full(2, n, np.int32)
+    acc, taken, cycles = walk_probe.walk(torch.from_numpy(w).to(cuda),
+                                         torch.from_numpy(ns).to(cuda),
+                                         variant, grid=4)
+    pacc, ptaken = walk_probe.walk_plain(torch.from_numpy(w),
+                                         torch.from_numpy(ns), variant,
+                                         grid=4)
+    assert torch.equal(acc.cpu(), pacc) and torch.equal(taken.cpu(), ptaken)
+    for g in range(4):
+        got, steps, _ = walk_probe.walk_model(w[g % 2], n, variant)
+        assert (got, steps) == (int(acc[g % 2]) & 0xFFFFFFFF,
+                                int(taken[g]))
+    assert bool((cycles >= 0).all())
+
+
+@pytest.mark.parametrize("n", BLOCK_NS)
+@pytest.mark.parametrize("build", [(k, b) for k, v in
+                                   walk_probe.INFLIGHT.items() for b in v])
+def test_inflight_builds_match_plain(cuda, build, n):
+    """The builds that vary the loads in flight (d's blocks on 2, 4 or 8
+    chains at a time, b's next loads first) compute what the default
+    build computes: acc and steps equal the plain version's."""
+    kind, name = build
+    w, _ = walk_probe.inputs(rows=2)
+    ns = np.full(2, n, np.int32)
+    acc, taken, _ = walk_probe.walk(
+        torch.from_numpy(w).to(cuda), torch.from_numpy(ns).to(cuda), kind,
+        grid=4, defines=walk_probe.INFLIGHT[kind][name])
+    pacc, ptaken = walk_probe.walk_plain(torch.from_numpy(w),
+                                         torch.from_numpy(ns), kind, grid=4)
+    assert torch.equal(acc.cpu(), pacc) and torch.equal(taken.cpu(), ptaken)
+
+
+@pytest.mark.parametrize("nit", [0, 1, 7, 64, lane_probe.NIT])
+@pytest.mark.parametrize("body", lane_probe.CHAIN_LOOPS)
+def test_chain_loops_match_plain(cuda, body, nit):
+    """base, a0_8 and a1_8 at one (row, lane) chain a thread, up to the
+    probe's 65,536 steps: acc equal to the plain version's, stats one row
+    a CTA (8) with the steps of every chain."""
+    src, _ = lane_probe.inputs()[f"t_{body}"]
+    got, stats = lane_probe.loop(body, torch.from_numpy(src).to(cuda), nit)
+    want, _ = lane_probe.loop(body, src, nit, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    st = stats.cpu()
+    assert st.shape == (8, 2) and st[:, 1].tolist() == [nit] * 8
+    assert bool((st[:, 0] >= 0).all())
+
+
 @pytest.mark.parametrize("mode", ["arbitrary", "parallel"])
 def test_burn_probe_matches_plain(cuda, mode):
     """__fmul_rn / __fadd_rn: the float32 rounding of the plain version,

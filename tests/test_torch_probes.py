@@ -33,7 +33,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from lz4_tpu_torch.probes import _common as cm  # noqa: E402
 from lz4_tpu_torch.probes import gather_probe, lane_probe  # noqa: E402
-from lz4_tpu_torch.probes import walk_probe  # noqa: E402
+from lz4_tpu_torch.probes import sass, walk_probe  # noqa: E402
 
 N_CUT = 4096
 E_CUT = 512
@@ -271,6 +271,112 @@ def test_walk_clamps_n_to_the_row():
     whole, _, _ = walk_probe.walk(words, np.array([256, 0], np.int32), "a",
                                   device="cpu")
     assert torch.equal(acc, whole) and int(taken[1]) == 0
+
+
+U = walk_probe.BLOCK
+BLOCK_NS = [0, 1, 3, 7, 8, 4 * U - 1, 4 * U, 4 * U + 1, 65536, 66560,
+            10**6]
+
+
+@pytest.fixture(scope="module")
+def block_rows():
+    return walk_probe.inputs(rows=2)[0]
+
+
+@pytest.mark.parametrize("n", BLOCK_NS,
+                         ids=[f"n{n}" for n in BLOCK_NS[:-1]] + ["past-row"])
+@pytest.mark.parametrize("variant", ["b", "c", "d"])
+def test_blocked_walk_replay_matches_plain(block_rows, variant, n):
+    """The kernel's blocked walks (`BLOCK`-step blocks with one exit test,
+    then the tested loop), replayed step for step on the host, against
+    `walk_plain`'s (acc, steps): from no step, through n at the edges of a
+    block's reach (4 U - 1, 4 U, 4 U + 1), to the tool's 65,536 bytes, the
+    whole row and an n past it (clamped)."""
+    ns = np.full(2, n, np.int32)
+    acc, taken = walk_probe.walk_plain(torch.from_numpy(block_rows),
+                                       torch.from_numpy(ns), variant,
+                                       grid=2)
+    clamped = min(n, 4 * walk_probe.WORDS)
+    for r in range(2):
+        got, steps, blocked = walk_probe.walk_model(block_rows[r], n,
+                                                    variant)
+        assert (got, steps) == (int(acc[r]) & 0xFFFFFFFF, int(taken[r]))
+        # which path ran: blocks once a block's reach fits (b: 8 steps,
+        # c: n > 4 (U - 1), d: every segment longer than 4 (U - 1))
+        reach = {"b": 3 * U - 2, "c": 4 * (U - 1) + 1,
+                 "d": 8 * (4 * (U - 1) + 1)}[variant]
+        assert (blocked > 0) == (clamped >= reach), (variant, n, blocked)
+        assert blocked % (8 * U if variant == "d" else U) == 0
+
+
+@pytest.mark.parametrize("n", [8, 32, 8 * (4 * U - 3)],
+                         ids=["seg1", "seg4", "seg-past-reach"])
+def test_blocked_walk_d_chain_ends_on_its_first_byte(n):
+    """d with every chain's first byte landing exactly on its segment's
+    end (byte & 3 = seg - 1 where seg <= 4) or, past a block's reach,
+    every chain ending within its first block's tail: steps and acc as
+    `walk_plain`'s, and seg = 0 (n < 8) takes neither a block nor a step."""
+    seg = n // 8
+    data = np.full(4 * 64, 0xFC, np.uint8)        # byte & 3 = 0: 1 a step
+    for k in range(8):
+        data[k * seg] = 0xFC | min(seg - 1, 3)
+    words = data.view("<i4")[None].repeat(2, 0)
+    for m in (n, 7):
+        ns = np.full(2, m, np.int32)
+        acc, taken = walk_probe.walk_plain(torch.from_numpy(words),
+                                           torch.from_numpy(ns), "d",
+                                           grid=2)
+        got, steps, blocked = walk_probe.walk_model(words[0], m, "d")
+        assert (got, steps) == (int(acc[0]) & 0xFFFFFFFF, int(taken[0]))
+        if m == 7:
+            assert (got, steps, blocked) == (0, 0, 0)
+        elif seg <= 4:
+            assert steps == 8 and blocked == 0
+
+
+def _sass_dump(functions) -> str:
+    """`cuobjdump -sass`'s layout for {name: [(instruction, stall, write
+    barrier, wait mask)]}: an address comment, the instruction and its low
+    word, then its high word, whose bits 41 on hold the control bits."""
+    lines = []
+    for name, ins in functions.items():
+        lines.append(f"\t\tFunction : _ZN4{name}EPKi")
+        for k, (text, stall, write, wait) in enumerate(ins):
+            hi = (stall | 1 << 4 | write << 5 | 7 << 8 | wait << 11) << 41
+            lines.append(f"        /*{16 * k:04x}*/   {text} ;"
+                         f"   /* 0x{k:016x} */")
+            lines.append(f"                              /* 0x{hi:016x} */")
+    return "\n".join(lines)
+
+
+def test_sass_loops_read_the_static_schedule():
+    """`sass.loops` finds each backward branch of the named function, and
+    sums its body's stall counts, its loads (past a predicate) and the
+    barriers they set; a forward branch and another function's loop are
+    not loops of it."""
+    walk = [("MOV R1, c[0x0][0x28]", 2, 7, 0),
+            ("LDS.U8 R2, [R3+UR4]", 4, 0, 0),               # 0x10: loop
+            ("@P1 LDS.U8 R5, [R3+UR4+0x1]", 1, 1, 0),
+            ("IADD3 R3, R2, 0x1, R3", 3, 7, 0b11),
+            ("@P0 BRA 0x10", 5, 7, 0),
+            ("@!P0 BRA 0x70", 5, 7, 0),                     # forward
+            ("IADD3 R4, R4, 0x1, RZ", 1, 7, 0),             # 0x60: loop
+            ("BRA 0x60", 6, 7, 0),
+            ("EXIT", 5, 7, 0)]
+    other = [("LDS R2, [R3]", 1, 0, 0), ("BRA 0x0", 1, 7, 0)]
+    text = _sass_dump({"walk_kernel": walk, "burn_kernel": other})
+    ins = sass.parse(text, "walk_kernel")
+    assert [a for a, _, _ in ins] == [16 * k for k in range(len(walk))]
+    assert ins[3][1] == "IADD3 R3, R2, 0x1, R3"
+    assert ins[3][2]["stall"] == 3 and ins[3][2]["wait"] == 0b11
+    assert ins[1][2]["write"] == 0 and ins[0][2]["read"] == 7
+    assert sass.loops(ins) == [
+        {"start": "0x10", "end": "0x40", "instructions": 4, "loads": 2,
+         "stall_sum": 4 + 1 + 3 + 5, "load_barriers": [0, 1]},
+        {"start": "0x60", "end": "0x70", "instructions": 2, "loads": 0,
+         "stall_sum": 7, "load_barriers": []}]
+    assert [lp["start"] for lp in sass.loops(ins, min_loads=1)] == ["0x10"]
+    assert sass.loops(sass.parse(text, "burn_kernel"))[0]["loads"] == 1
 
 
 @pytest.mark.parametrize("mode", ["arbitrary", "parallel"])
@@ -595,6 +701,74 @@ def test_onehot_is_the_row_select_of_a0_big(seed):
                                   _loop_tpu(mk_a0_big(512), src, 16))
 
 
+def test_chain_loops_map_each_chain_to_one_thread():
+    """base, a0_8 and a1_8 run one (row, lane) chain a thread: the 8
+    CTAs of 128 threads cover each of the 1024 chains once, and each warp
+    holds 32 consecutive lanes of one row (a0_8's 32 column loads then
+    fall in 32 banks)."""
+    ctas = lane_probe.loop_ctas("base", 8)
+    assert all(lane_probe.loop_ctas(b, 8) == ctas == 8
+               for b in lane_probe.CHAIN_LOOPS)
+    seen = {}
+    for cta in range(ctas):
+        for t in range(lane_probe.LANES):
+            seen.setdefault(lane_probe.chain_of(cta, t), []).append((cta, t))
+    assert sorted(seen) == [(r, c) for r in range(8) for c in range(128)]
+    assert all(len(v) == 1 for v in seen.values())
+    for cta in range(ctas):
+        for w in range(lane_probe.LANES // 32):
+            chains = [lane_probe.chain_of(cta, 32 * w + t) for t in range(32)]
+            assert len({r for r, _ in chains}) == 1
+            lanes = [c for _, c in chains]
+            assert lanes == list(range(lanes[0], lanes[0] + 32))
+            assert sorted(c % 32 for c in lanes) == list(range(32))
+    # the row-0 loops keep their lanes_per_cta split
+    assert lane_probe.loop_ctas("a0_big", 4096) == 16
+    assert lane_probe.loop_ctas("onehot", 512) == 2
+
+
+def _bank_ways(src, nit: int) -> tuple[float, int]:
+    """A host model of a1_8's bank conflicts, not a measurement: at each of
+    `nit` steps, each warp's 32 loads (32 lanes of one row) read words
+    (acc + i) mod 128 of their row, which starts on bank 0; a bank serves
+    one distinct word at a time (equal words broadcast), so a load takes
+    as many passes as its busiest bank has distinct words. Returns (the
+    mean of those passes over steps and warps, their most)."""
+    lanes = lane_probe.LANES
+    s8 = np.asarray(src, dtype=np.int64)[:8]
+    acc = s8.copy()
+    rows = np.arange(8)[:, None]
+    seen = np.zeros((8, lanes // 32, lanes), bool)
+    warp = np.arange(lanes)[None, :] // 32
+    total, most = 0, 0
+    for i in range(nit):
+        w = (acc + i) & (lanes - 1)
+        seen[:] = False
+        seen[rows, warp, w] = True
+        ways = seen.reshape(8, lanes // 32, 4, 32).sum(2).max(2)
+        total += int(ways.sum())
+        most = max(most, int(ways.max()))
+        acc = acc ^ np.take_along_axis(s8, w, 1)
+        acc = ((acc + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    return total / max(nit * ways.size, 1), most
+
+
+def test_a1_8_bank_ways():
+    """The broadcast argument for a1_8's loads, on a host model of their
+    bank conflicts (`_bank_ways`): lanes that all read one word take one
+    pass; a warp whose lanes read the 4 words of one bank (0, 32, 64, 96
+    mod 128) at every step takes 4; on the probe's own inputs two lanes of
+    a row that once hold the same acc follow the same path, so a warp's
+    chains merge and its loads average under 1.1 passes over the first
+    4,096 steps (1.056), far from the 3-4 of 32 random words."""
+    zeros = np.zeros((8, 128), np.int32)
+    assert _bank_ways(zeros, 5) == (1.0, 1)
+    four = np.tile(32 * (np.arange(128) % 4), (8, 1)).astype(np.int32)
+    assert _bank_ways(four, 6) == (4.0, 4)
+    mean, most = _bank_ways(lane_probe.inputs()["t_a1_8"][0], 4096)
+    assert mean < 1.1 and most <= 4
+
+
 def test_lane_loop_wraps_like_int32():
     """Sources over the whole int32 range: acc + i and the one-hot sum
     wrap as jnp's int32 does."""
@@ -785,6 +959,46 @@ def test_chain_report_arithmetic(case):
         assert r["steps"] == 16 * walk_probe.BURN_STEPS
     # without a floor the report has no chain bound
     assert "chain_share" not in report(stats, ms, None)
+
+
+def test_chase_throughput_bound():
+    """k_chase's throughput bound on a hand-made block of 64 words (2
+    warp groups of 32), 2 rounds: a round's L1 bytes are a 128-byte load
+    and store a group and 32 bytes a distinct gathered sector (lanes whose
+    word is >= 0 gather; the rest read nothing); its cycles the larger of
+    those over 128 bytes a clock and the function's least instructions (5
+    a word: two loads, a store, the predicate and the gather's address)
+    over 4 warp instructions a clock, a round at a time."""
+    p = torch.full((1, 2, 32), -1, dtype=torch.int32)
+    p[0, 0, :8] = torch.arange(8)      # one sector; ptr[ptr] keeps them
+    p[0, 1, :3] = torch.tensor([63, 40, 9])     # three sectors, then -1s
+    got = gather_probe.chase_l1_bytes(p, 2)
+    assert got.tolist() == [[2 * 256 + 32 * (1 + 3), 2 * 256 + 32]]
+    assert gather_probe.CHASE_WORD_INSTRUCTIONS == 5
+    instr = 2 * 5 / 4
+    want = sum(max(instr, b / 128) for b in got[0].tolist())
+    assert float(gather_probe.chase_throughput(p, 2)[0]) == want
+    # no gather: a group's 256 bytes of load and store (2 clocks) still
+    # outweigh its 5 instructions (1.25 clocks); 3 rounds of 2 groups
+    none = torch.full((1, 64), -1, dtype=torch.int32)
+    assert float(gather_probe.chase_throughput(none, 3)[0]) == 3 * 4.0
+    stats = torch.tensor([[4 * want, 2], [2 * want, 2]]).to(torch.float64)
+    two = torch.cat([p, p])
+    r = gather_probe._throughput_fields(two, 2, stats, 0.5, FLOOR)
+    assert r["throughput_bound_cycles"] == want
+    assert r["throughput_bound_ms"] == pytest.approx(want / 1.5e6)
+    assert r["throughput_share"] == pytest.approx(want / 1.5e6 / 0.5)
+    assert r["throughput_cycles_share"] == pytest.approx(0.5)
+    # chase's report is its chain report with the throughput bound added
+    st = torch.tensor([[9_000, 2], [9_500, 2]])
+    rep = gather_probe._chase_report(two)(st, 0.5, FLOOR)
+    chain = gather_probe._chain_report("chase")(st, 0.5, FLOOR)
+    assert rep == {**chain, **gather_probe._throughput_fields(
+        two, 2, st, 0.5, FLOOR)}
+    assert rep["throughput_bound_cycles"] == want and "chain_share" in rep
+    # without a floor, no bound of either kind
+    assert not any("share" in k for k in gather_probe._chase_report(two)(
+        st, 0.5, None))
 
 
 @pytest.mark.parametrize("chain", ["lds", "l1", "l2", "imad", "fp32",
