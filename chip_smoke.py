@@ -60,11 +60,13 @@ launch count set to 0 just before it and read just after:
   output of its last timed launch held against its plain version on the
   same inputs; the gathers also with the host's time a call, P1's lane,
   row and flat behind an L2 flush, and their `torch.gather` /
-  `torch.take` on the same methods; each chain body (P1 chase and hops,
-  P2, P3, P4's loops and wave) with its chain bound, priced by the
-  latency build of `csrc/probe_walk.cu` at the SM clock nvidia-smi reads
-  while the card is busy, held to be at most 1.03 times the SM cycles
-  its clock64 measured on that chain, and printed as one
+  `torch.take` on the same methods; P1 chase at the tool's shape (its
+  cluster body) and at int32[32, 2048, 128] (its global-memory body),
+  each a body of its own with its own launches; each chain body (P1
+  chase and hops, P2, P3, P4's loops and wave) with its chain bound,
+  priced by the latency build of `csrc/probe_walk.cu` at the SM clock
+  nvidia-smi reads while the card is busy, held to be at most 1.03 times
+  the SM cycles its clock64 measured on that chain, and printed as one
   {"chain_bounds": ...} line before the kernels line.
 
 Any failure raises. The last line is {"ok": true, "device": {...}}; the
@@ -1958,7 +1960,9 @@ def phase_probes():
     latency build (`walk_probe.latencies`) at the SM clock nvidia-smi reads
     while the card is busy, both taken before the bodies run, and each is
     held to the cycles its longest chain took; P1 chase's throughput bound
-    (`gather_probe.chase_throughput`) to the cycles its blocks took.
+    over the card's SMs (`gather_probe.chase_card_bound`) to the cycles its
+    slowest block took, with its route and cluster size
+    (`gather_probe.chase_plan`) beside it, on each of its two bodies.
     Returns the kernels line's entries and the {"chain_bounds": ...}
     line."""
     floor = probe_floor()
@@ -1993,8 +1997,15 @@ def phase_probes():
                    f"measured (share {e['chain_share']:.3f} of ms, "
                    f"{e['chain_cycles_share']:.3f} of its cycles)"
                    if "chain_bound_ms" in e else "")
-                + (f"; throughput bound {e['throughput_bound_ms']:.6f} ms "
-                   f"(share {e['throughput_share']:.3f} of ms, "
+                + (f"; {e['chase_route']} body, {e['cluster']} CTAs a "
+                   f"block, {e['max_active_clusters']} clusters resident at "
+                   f"most" if "chase_route" in e else "")
+                + (f"; throughput bound {e['throughput_bound_ms']:.6f} ms, "
+                   f"{e['throughput_bound_cycles']:.1f} SM cycles over "
+                   f"{e['sms']} SMs ("
+                   f"{e['throughput_bound_cycles_one_sm']:.1f} on one SM) "
+                   f"against {e['longest_chain_cycles']:.0f} of the slowest "
+                   f"block (share {e['throughput_share']:.3f} of ms, "
                    f"{e['throughput_cycles_share']:.3f} of its cycles)"
                    if "throughput_bound_ms" in e else "")
                 + f"; plain {e['plain_ms']:.1f} ms, "
@@ -2008,7 +2019,8 @@ def phase_probes():
     # a chain bound is a least time: above the cycles its chain took, a
     # SASS count in CHAINS or a price is wrong (the margin is the spread
     # of the latency build's prices between calls, 2.6% at most)
-    # the throughput bound (k_chase) is a least time too
+    # the throughput bound (k_chase, over the card's SMs) is a least time
+    # too
     over = {e["name"]: e[k] for e in entries
             for k in ("chain_cycles_share", "throughput_cycles_share")
             if e.get(k, 0.0) > 1.03}
@@ -2018,8 +2030,10 @@ def phase_probes():
     keys = ("ms", "cycles_per_step", "longest_chain", "chain",
             "chain_cycles_per_step", "chain_bound_cycles", "chain_bound_ms",
             "chain_share", "longest_chain_cycles", "chain_cycles_share",
-            "throughput_bound_cycles", "throughput_bound_ms",
-            "throughput_share", "throughput_cycles_share")
+            "chase_route", "cluster", "max_active_clusters", "sms",
+            "throughput_bound_cycles", "throughput_bound_cycles_one_sm",
+            "throughput_bound_ms", "throughput_share",
+            "throughput_cycles_share")
     chains = {**asdict(floor), "bodies": {
         e["name"]: {k: e[k] for k in keys if k in e}
         for e in entries if "chain_share" in e}}

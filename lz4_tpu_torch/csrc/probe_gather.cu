@@ -34,9 +34,16 @@
 //            shapes take `direct_kernel` as flat;
 //   3 chase: `steps` rounds (8 in the probe) of ptr = where(ptr >= 0,
 //            ptr[clip(ptr, 0, N - 1)], ptr) over the whole block. Each
-//            round reads the last round's whole block, so one CTA of
-//            1024 threads takes a block, ping-ponging between `out` and
-//            `scratch` in global memory (L1/L2) with a barrier a round;
+//            round reads the last round's whole block. Where the block
+//            fits a thread-block cluster's shared memory (32 <= N <=
+//            131072: `chase_cluster`), a cluster of 8 CTAs takes a block,
+//            each CTA N / 8 words of it as `cur` and `dst` (128 KB at
+//            most), and a round gathers from the cluster's distributed
+//            shared memory with one cluster barrier a round
+//            (`chase_cluster_kernel`). Other N take one CTA of 1024
+//            threads a block, ping-ponging between `out` and `scratch` in
+//            global memory through L2 with a barrier a round
+//            (`chase_kernel`);
 //   4 hops:  one thread a block, `steps` (8192) dependent steps of
 //            out[k] = cur; cur = nm[min(cur + ml[cur], N - 1)], the
 //            serial parse pattern on global memory (L1/L2). cur + ml is
@@ -61,23 +68,41 @@
 // 4-byte read brings a 32-byte sector from L2: at the probe's size some
 // 64 MB of L2 traffic for 8 MB of x, which flat_kernel replaces with 32 MB
 // read in 64 KB runs.
-// chase's rounds and hops' steps are dependent loads, so latency bounds
-// them: hops visits 12 bytes a step, 3.1 MB for 32 blocks of 8192 steps,
-// 0.94 us at 3.35 TB/s. stats[b] = (SM cycles, chain steps) of chase's
-// and hops' chains (thread 0 of the block's CTA).
+// hops' steps are dependent loads, so latency bounds it: it visits 12
+// bytes a step, 3.1 MB for 32 blocks of 8192 steps, 0.94 us at 3.35 TB/s.
+// chase moves 8 bytes a word once (16.8 MB in and out for the probe's 32
+// blocks); its rounds' loads and gathers, each reading only the last
+// round's words, are what bound it. On one SM a block's 8 rounds take at
+// least some 46,000 cycles of L1 traffic (`gather_probe.chase_throughput`)
+// and leave 131 SMs idle; in global memory each word of a round is a
+// coalesced load, a dependent gather from L2 and a store. The cluster
+// spreads a block over 8 CTAs on up to 8 SMs and keeps every round in
+// shared memory: the block is loaded once (bulk copies) and stored once.
+// Its remote gathers (generic loads of the cluster's shared window, 7 in
+// 8 of them to another SM) then take most of the first rounds' cycles
+// (PERF.md, P1 k_chase).
+// stats[b] = (SM cycles, chain steps) of chase's and hops' chains: hops'
+// thread, chase's CTA (thread 0; the most of the cluster's CTAs' clocks
+// on the cluster body).
 
 #include "pyentry.h"  // first: Python.h precedes the system headers
 
+#include <climits>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "mbarrier.cuh"
 #include "smem.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
-constexpr int kChaseThreads = 1024;
+constexpr int kChaseThreads = 1024;  // chase's global-memory body's CTA
+constexpr int kChaseStage = 16;      // words a chase thread holds a round
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32 * 4;       // a warp's words: 4 a lane
 constexpr long long kMaxGrid = 1 << 20;
@@ -91,6 +116,19 @@ constexpr int kFlatMaxWords = 65536;
 constexpr int kFlatGroups = kPieceWords / 4 / kFlatThreads;  // 8 a thread
 constexpr int kMaxSmem = 2 * kPieceWords * 4;  // two pieces; a strip fits
 static_assert(kStripWords * 4 <= kMaxSmem, "a strip fits");
+// chase's cluster body: kCluster CTAs a block (the portable cluster
+// size), each holding N / kCluster words twice (cur, dst), at most
+// kCtaWords (2 x 64 KB). At 4 CTAs a block the probe's 32 blocks of
+// 65,536 words would need 128 KB a CTA, one CTA a SM, and only 30 such
+// clusters are resident at once (the GPCs' SM counts): two waves. At 8,
+// with 512 threads held to 40 registers, three 64 KB CTAs fit a SM and 45
+// clusters are resident: one wave, faster in turns than 4 (PERF.md,
+// P1 k_chase)
+constexpr int kCtaWords = 16384;
+constexpr int kCluster = 8;
+constexpr int kClusterThreads = 512;   // a cluster CTA's most threads
+constexpr int kBulkBytes = 16384;      // a bulk copy's bytes
+static_assert(2 * kCtaWords * 4 <= kMaxSmem, "a CTA's words fit");
 
 // words [0, 4) of p, with one 16-byte access (kVec) or four
 template <bool kVec>
@@ -336,27 +374,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Buffers written inside the launch are read with plain loads: the
-// barrier at the end of each round makes one round's writes visible to
-// the whole CTA.
+// chase in global memory (N outside the cluster body's cut, or every N
+// in the -DLZ4T_CHASE_GLOBAL build): one CTA of 1024 threads a block, the
+// rounds ping-ponging between out and scratch with a barrier a round.
+// Every load, of p as of the buffers the launch rewrites, is ld.global.cg
+// (L2; LDG.E.STRONG.GPU in the SASS): the read-only path (__ldg,
+// LDG.E.CONSTANT) need not see this launch's own stores, even across a
+// barrier. out and scratch carry no __restrict__ (they alias nothing, but
+// they are written), so a thread stages kChaseStage words of a round in
+// registers, their loads, then their gathers, then their stores: a
+// batch's gathers are in flight together.
 __global__ void __launch_bounds__(kChaseThreads)
-    chase_kernel(const int32_t* __restrict__ p, int32_t* out,
-                 int32_t* scratch, long long* __restrict__ stats, int N,
-                 int rounds) {
+    chase_kernel(const int32_t* p, int32_t* out, int32_t* scratch,
+                 long long* __restrict__ stats, int N, int rounds) {
   const size_t blk = static_cast<size_t>(blockIdx.x) * N;
   const int32_t* cur = p + blk;
   int32_t* o = out + blk;
   int32_t* sc = scratch + blk;
   const long long t0 = clock64();
   if (rounds <= 0)
-    for (int i = threadIdx.x; i < N; i += blockDim.x) o[i] = cur[i];
+    for (int i = threadIdx.x; i < N; i += kChaseThreads)
+      o[i] = __ldcg(cur + i);
   for (int r = 0; r < rounds; ++r) {
     int32_t* dst = ((rounds - 1 - r) & 1) ? sc : o;
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-      const int32_t v = cur[i];
-      const int32_t c = v < 0 ? 0 : (v > N - 1 ? N - 1 : v);
-      const int32_t nx = cur[c];
-      dst[i] = v >= 0 ? nx : v;
+    for (int i0 = threadIdx.x; i0 < N; i0 += kChaseThreads * kChaseStage) {
+      int32_t w[kChaseStage];
+#pragma unroll
+      for (int k = 0; k < kChaseStage; ++k) {
+        const int i = i0 + k * kChaseThreads;
+        w[k] = i < N ? __ldcg(cur + i) : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < kChaseStage; ++k)
+        if (w[k] >= 0) w[k] = __ldcg(cur + min(w[k], N - 1));
+#pragma unroll
+      for (int k = 0; k < kChaseStage; ++k) {
+        const int i = i0 + k * kChaseThreads;
+        if (i < N) dst[i] = w[k];
+      }
     }
     __syncthreads();
     cur = dst;
@@ -365,6 +420,112 @@ __global__ void __launch_bounds__(kChaseThreads)
     stats[2 * blockIdx.x] = clock64() - t0;
     stats[2 * blockIdx.x + 1] = rounds > 0 ? rounds : 0;
   }
+}
+
+// chase where 32 <= N <= 131072 (`chase_cluster`): a cluster of K
+// (kCluster) CTAs a block, CTA `rank` holding words [rank Q, rank Q + Q),
+// Q = N / K, in shared memory as cur and dst. It loads them with bulk
+// copies on an mbarrier, then waits at a cluster barrier, so every CTA's
+// words have landed before any is read. A round, for each 16 words of a thread (4
+// groups of 4, g0 + j * blockDim; Q / 16 threads, 512 at most): their 4
+// 16-byte loads from cur, then a gather for each word v >= 0 from cur of
+// rank clip(v) / Q (a generic load of the cluster's shared window, LD.E
+// in the SASS; an LDS where that rank is the CTA's own), then 4 16-byte
+// stores to dst. One cluster barrier (arrive.release, wait.acquire) a
+// round puts a round's stores before the next round's reads and its reads
+// before the next round's stores, and cur and dst swap. Both are shared
+// memory the thread addresses itself, so nothing may alias. After the
+// last round each CTA stores cur to out with 16-byte stores. Each CTA
+// takes its clock64 delta; rank 0 writes the cluster's largest to stats
+// after a barrier, and a last barrier keeps every CTA's shared memory
+// until it has been read.
+__global__ void __launch_bounds__(kClusterThreads, 3)
+    chase_cluster_kernel(const int32_t* __restrict__ p,
+                         int32_t* __restrict__ out,
+                         long long* __restrict__ stats, int N,
+                         int rounds) {
+  extern __shared__ __align__(128) int32_t words[];   // cur, dst: Q each
+  __shared__ __align__(8) uint64_t landed;
+  __shared__ long long took;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = static_cast<int>(cluster.num_blocks());
+  const uint32_t rank = cluster.block_rank();
+  const int Q = N / K, lq = __ffs(Q) - 1, groups = Q / 4;
+  const int blk = blockIdx.x / K;
+  const size_t first = static_cast<size_t>(blk) * N +
+                       static_cast<size_t>(rank) * Q;
+  const long long t0 = clock64();
+  const uint32_t bar = lz4t::smem_addr(&landed);
+  if (threadIdx.x == 0) {
+    lz4t::bar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    lz4t::bar_arrive_tx(bar, Q * 4);
+    for (int off = 0; off < Q * 4; off += kBulkBytes)
+      lz4t::bulk_copy(lz4t::smem_addr(words) + off, p + first + off / 4,
+                      min(kBulkBytes, Q * 4 - off), bar);
+  }
+  lz4t::bar_wait(bar, 0);
+  cluster.sync();
+  int32_t* cur = words;
+  int32_t* dst = words + Q;
+  constexpr int kGroups = kChaseStage / 4;
+  for (int r = 0; r < rounds; ++r) {
+    for (int g0 = threadIdx.x; g0 < groups; g0 += blockDim.x * kGroups) {
+      int32_t w[kGroups][4];
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        const int g = g0 + j * blockDim.x;
+        if (g < groups) {
+          const int4 q = reinterpret_cast<const int4*>(cur)[g];
+          w[j][0] = q.x, w[j][1] = q.y, w[j][2] = q.z, w[j][3] = q.w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        if (g0 + j * blockDim.x < groups) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            // v < 0 clamps to N - 1 as unsigned: a valid address, not read
+            const int32_t v = w[j][k];
+            const unsigned c = min(static_cast<unsigned>(v),
+                                   static_cast<unsigned>(N - 1));
+            const unsigned at = c & (Q - 1), from = c >> lq;
+            const int32_t* remote = cluster.map_shared_rank(cur + at, from);
+            if (v >= 0) w[j][k] = from == rank ? cur[at] : *remote;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        const int g = g0 + j * blockDim.x;
+        if (g < groups)
+          reinterpret_cast<int4*>(dst)[g] =
+              make_int4(w[j][0], w[j][1], w[j][2], w[j][3]);
+      }
+    }
+    cluster.sync();
+    int32_t* t = cur;
+    cur = dst;
+    dst = t;
+  }
+  for (int g = threadIdx.x; g < groups; g += blockDim.x)
+    reinterpret_cast<int4*>(out + first)[g] =
+        reinterpret_cast<const int4*>(cur)[g];
+  if (threadIdx.x == 0) took = clock64() - t0;
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    long long most = 0;
+    for (int k = 0; k < K; ++k) {
+      const long long c = *cluster.map_shared_rank(&took, k);
+      most = c > most ? c : most;
+    }
+    stats[2 * blk] = most;
+    stats[2 * blk + 1] = rounds > 0 ? rounds : 0;
+  }
+  cluster.sync();
 }
 
 __global__ void hops_kernel(const int32_t* __restrict__ nm,
@@ -390,10 +551,10 @@ __global__ void hops_kernel(const int32_t* __restrict__ nm,
   stats[2 * blockIdx.x + 1] = steps;
 }
 
-std::atomic<unsigned long long> g_raised[4];
+std::atomic<unsigned long long> g_raised[5];
 
-// each row_kernel and flat_kernel instantiation raises its limit to 128 KB
-// once a device
+// each row_kernel and flat_kernel instantiation and chase_cluster_kernel
+// raise their limit to 128 KB once a device
 template <typename K>
 int raise_smem(K kernel, int slot) {
   return static_cast<int>(
@@ -403,6 +564,42 @@ int raise_smem(K kernel, int slot) {
 bool aligned16(const void* p) {
   return !(reinterpret_cast<uintptr_t>(p) & 15);
 }
+
+// chase's cluster size for a block of N words (a power of two):
+// kCluster where each CTA holds 4 to kCtaWords words, else 0 (the
+// global-memory body). gather_probe.chase_route is the same cut.
+// -DLZ4T_CHASE_GLOBAL sends every N to the global-memory body.
+int chase_cluster(int N) {
+#ifdef LZ4T_CHASE_GLOBAL
+  static_cast<void>(N);
+  return 0;
+#else
+  return N >= 4 * kCluster && N <= kCluster * kCtaWords ? kCluster : 0;
+#endif
+}
+
+// A cluster launch of chase_cluster_kernel: `blocks` clusters of K CTAs,
+// each of N / K / 16 threads (32 to 512; 16 words a thread a pass) and
+// 2 N / K words of dynamic shared memory
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1]{};
+  ClusterLaunch(int blocks, int K, int N, cudaStream_t st) {
+    const int Q = N / K, t = Q / kChaseStage;
+    cfg.gridDim = dim3(blocks * K);
+    cfg.blockDim = dim3(t < 32 ? 32 : (t > kClusterThreads ? kClusterThreads
+                                                           : t));
+    cfg.dynamicSmemBytes = 2 * Q * 4;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = K;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
 
 int grid_of(long long items, int per_cta) {
   const long long g = (items + per_cta - 1) / per_cta;
@@ -491,16 +688,57 @@ int stream_launch(const long long* shape, int, const void* a, const void* b,
                        code, st);
 }
 
+// chase on the cluster body where chase_cluster(N) > 0 (p and out
+// 16-byte aligned; scratch unused), else on the global-memory body.
+// Returns the launch's error: a cluster launch the runtime refuses is
+// returned, never replaced by the other body.
+int launch_chase(const int32_t* p, int32_t* o, int32_t* sc, long long* stats,
+                 int B, int N, int rounds, cudaStream_t st) {
+  const int K = chase_cluster(N);
+  if (!K) {
+    chase_kernel<<<B, kChaseThreads, 0, st>>>(p, o, sc, stats, N, rounds);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (static_cast<long long>(B) * K > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(p) || !aligned16(o))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int e = raise_smem(chase_cluster_kernel, 4);
+  if (e) return e;
+  ClusterLaunch l(B, K, N, st);
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &l.cfg, chase_cluster_kernel, p, o, stats, N, rounds);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
+}
+
 }  // namespace
 
 LZ4T_GATHER_MODULE(lz4t_probe_gather, stream_valid, stream_launch,
                    "probe_gather gather")
 
+// chase's plan for a block of N words (a power of two): *cluster, the
+// cluster size it launches (0: the global-memory body), and *max_active,
+// cudaOccupancyMaxActiveClusters of the cluster body at that size and its
+// shared memory (0 on the global-memory body). Returns the runtime's error.
+extern "C" int lz4t_probe_chase_plan(int N, int* cluster, int* max_active) {
+  const int K = chase_cluster(N);
+  *cluster = K;
+  *max_active = 0;
+  if (!K) return 0;
+  const int e = raise_smem(chase_cluster_kernel, 4);
+  if (e) return e;
+  ClusterLaunch l(1, K, N, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_active, chase_cluster_kernel, &l.cfg));
+}
+
 // chase (3) and hops (4); lane, flat and row launch through the Python
 // entry above. a, b: int32[B, R, C] (chase: p and unused; hops: nm and
 // ml); out: int32[B, R, C] (hops: int32[B, steps]); scratch: int32[B, R,
-// C] for chase; stats: int64[B, 2]. R and C are powers of two. Returns
-// the launch's cudaError_t (0 on success).
+// C] for chase (the global-memory body's; the cluster body leaves it
+// unused, and it stays in the contract); stats: int64[B, 2]. R and C are
+// powers of two. Returns the launch's cudaError_t (0 on success).
 extern "C" int lz4t_probe_gather(const void* a, const void* b, void* out,
                                  void* scratch, void* stats, int B, int R,
                                  int C, int variant, int steps,
@@ -515,10 +753,8 @@ extern "C" int lz4t_probe_gather(const void* a, const void* b, void* out,
   const int N = R * C;
   switch (variant) {
     case 3:
-      chase_kernel<<<B, kChaseThreads, 0, st>>>(
-          x, o, static_cast<int32_t*>(scratch),
-          static_cast<long long*>(stats), N, steps);
-      break;
+      return launch_chase(x, o, static_cast<int32_t*>(scratch),
+                          static_cast<long long*>(stats), B, N, steps, st);
     case 4:
       hops_kernel<<<B, 1, 0, st>>>(x, y, o, static_cast<long long*>(stats),
                                     N, steps);

@@ -61,6 +61,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mbarrier.cuh"
 #include "smem.cuh"
 
 namespace {
@@ -119,53 +120,12 @@ __device__ __forceinline__ uint32_t tail(uint32_t h, const uint8_t* t,
 
 #ifndef LZ4T_B6_ROW_THREAD
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// arrive, expecting `bytes` more to land (none: a plain arrival)
-__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  if (bytes)
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                     "r"(bar), "r"(bytes)
-                 : "memory");
-  else
-    bar_arrive(bar);
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
+using lz4t::bar_arrive;
+using lz4t::bar_arrive_tx;
+using lz4t::bar_init;
+using lz4t::bar_wait;
+using lz4t::bulk_copy;
+using lz4t::smem_addr;
 
 // A round on the carried r, where the accumulator is r * kP1 (kP1 is odd,
 // so every accumulator has one r): r' = rotl(r * kP1 + w * kP2, 13). The

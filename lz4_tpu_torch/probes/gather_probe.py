@@ -11,7 +11,12 @@ Ports `tools/pallas_probe.py` (`k_lane`, `k_flat`, `k_row`, `k_chase`,
 - `row`: out[r, c] = x[idx[r, c] mod R, c];
 - `flat`: out = x.flat[idx mod N], N = R * C;
 - `chase`: 8 rounds of ptr = where(ptr >= 0, ptr[clip(ptr, 0, N - 1)],
-  ptr) over the whole block (one CTA a block, global memory);
+  ptr) over the whole block. Where the block fits a cluster's shared
+  memory (`chase_route`: 32 <= N <= 131,072) a cluster of 8 CTAs takes a
+  block, an eighth in each CTA's shared memory, every round gathered
+  through the cluster's distributed shared memory; other N take one CTA
+  a block in global memory (L2). The probe times both: `P1 k_chase` at
+  the tool's shape, `P1 k_chase global` at int32[32, 2048, 128];
 - `hops`: 8192 dependent steps a block of out[k] = cur; cur = nm[min(cur
   + ml[cur], N - 1)], one thread a block (global memory), out int32[B,
   8192 / C, C].
@@ -28,7 +33,9 @@ library's CPython entry (`csrc/pyentry.h`): one C call checks the
 inputs, allocates the output with `torch.empty_like` and launches; where
 a check fails or the tensors sit off the current device it returns None
 and `gather` runs its Python checks (which raise) or enters the device.
-chase and hops launch through ctypes with their scratch and stats.
+chase and hops launch through ctypes with their scratch and stats (the
+cluster body leaves chase's scratch unused); a cluster launch the runtime
+refuses raises.
 
 Indices wrap mod the gathered extent, as the TPU's gathers do (R and C
 powers of two). Each body runs at the tool's sizes, and the output of its
@@ -36,11 +43,14 @@ last timed launch is held against its plain version on the same inputs
 (`probes/_common.measure`; the plain hop loop takes a few torch ops a
 step). It reports `ms` (`probes/_timing.cuda_ms`, one launch after a
 sync, which for these short kernels holds the host's launch time;
-`ms_back_to_back` beside it), for the chains `ns_per_step`,
-`cycles_per_step` (clock64 of a block's thread) and the chain bound
-(`_common.chain_fields`; a load is priced as an L2 hit where it is the
-launch's first touch of its 128-byte line, which L1 cannot hold yet, and
-as an L1 hit elsewhere), and for lane, row and
+`ms_back_to_back` beside it), for chase its route, cluster size,
+`cudaOccupancyMaxActiveClusters` (`chase_plan`) and throughput bound
+over the card's SMs (`chase_throughput`), for the chains `ns_per_step`,
+`cycles_per_step` (clock64 of a block's thread; chase's, the most of
+its cluster's CTAs) and the chain bound (`_common.chain_fields`; a hop's
+load is priced as an L2 hit where it is the launch's first touch of its
+128-byte line, which L1 cannot hold yet, and as an L1 hit elsewhere;
+chase's as `_chase_chain` says), and for lane, row and
 flat the host's and the card's time a call (`host_us`, `device_us`), the
 time behind an L2 flush (`ms_l2_flushed`: their 25.2 MB fit the 50 MB
 L2) and one `torch.gather` of the same function on the same inputs (the
@@ -57,6 +67,7 @@ as gathers for chase, and a loop over the steps for hops.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import sys
 from functools import partial
 
@@ -68,6 +79,9 @@ from lz4_tpu_torch.probes import _common as cm
 
 R, C = 512, 128
 B = 32
+#: rows of the block that chase's global-memory body takes in the probe
+#: (int32[B, 2048, C]: 262,144 words, past the cluster's reach)
+GLOBAL_R = 2048
 STEPS = 8192
 ROUNDS = 8
 LIB = "probe_gather"
@@ -82,13 +96,25 @@ REPLACES = {"lane": "tools/pallas_probe.py:78",
             "chase": "tools/pallas_probe.py:115",
             "hops": "tools/pallas_probe.py:134"}
 
-#: instructions a step on the longest chain besides its two loads, by
-#: class (`_common.CLASSES`), read from the SASS (`cuobjdump -sass` of the
-#: built library): chase's round (ISETP, SEL, SEL, IADD3, LEA.HI.X.SX32,
-#: LEA.HI.X between its loads; the store and the barrier priced at 0) and
-#: hops' step (LOP3, IADD3, LEA, LEA.HI.X to the first load; IADD3,
-#: LEA.HI.X.SX32, ISETP.EX, SEL, LOP3, IADD3, LEA, LEA.HI.X to the second)
-CHAINS = {"chase": {"alu": 6}, "hops": {"alu": 12}}
+#: chase's cluster body (`csrc/probe_gather.cu`, `chase_cluster`): the
+#: CTAs of a cluster (the portable size) and the most words a CTA holds of
+#: its block (twice, as cur and dst: 128 KB of shared memory)
+CHASE_CLUSTER = 8
+CHASE_CTA_WORDS = 16384
+
+#: instructions a step on the longest chain besides its loads, by class
+#: (`_common.CLASSES`), read from the SASS (`cuobjdump -sass` of the built
+#: library; stores, branches and barriers priced at 0): chase's round on
+#: the cluster body from the word's LDS.128 to its gather (ISETP on v >=
+#: 0, whose branch the gather waits on, VIMNMX.U32, LOP3, IMAD.WIDE.U32,
+#: PRMT; the gather, LD.E of the cluster's shared window or LDS of the
+#: CTA's own, priced as LDS; `_chase_chain`), on the global-memory body
+#: (`chase_global`: ISETP, VIMNMX, IADD3, LEA, LEA.HI.X between its two
+#: loads, both from L2), and hops' step (LOP3, IADD3, LEA, LEA.HI.X to
+#: the first load; IADD3, LEA.HI.X.SX32, ISETP.EX, SEL, LOP3, IADD3, LEA,
+#: LEA.HI.X to the second)
+CHAINS = {"chase": {"lds": 2, "alu": 4, "imad": 1},
+          "chase_global": {"alu": 5}, "hops": {"alu": 12}}
 #: the least instructions a word of chase's function, whatever the body:
 #: the coalesced load, its predicate (ptr >= 0), the gather's address (one
 #: LEA from the word and the block's base), the predicated gather and the
@@ -134,6 +160,33 @@ def inputs(b: int = B, r: int = R, c: int = C, seed: int = 3) -> dict:
 
 def _pow2(v: int) -> bool:
     return v > 0 and not v & (v - 1)
+
+
+def chase_route(n: int) -> int:
+    """The cluster size chase launches for a block of n words (a power of
+    two): `CHASE_CLUSTER` where each of its CTAs holds 4 to
+    `CHASE_CTA_WORDS` words, else 0, the global-memory body. The C
+    launcher's `chase_cluster` is the same cut; on the card `chase_plan`
+    asks the library, and the reports use its answer."""
+    ok = 4 * CHASE_CLUSTER <= n <= CHASE_CLUSTER * CHASE_CTA_WORDS
+    return CHASE_CLUSTER if ok else 0
+
+
+def chase_plan(n: int) -> dict:
+    """What the built chase kernel launches for a block of n words, asked
+    of its library: `chase_route` ("cluster" or "global"), `cluster` (CTAs
+    a block; 0 on the global-memory body) and `max_active_clusters`
+    (`cudaOccupancyMaxActiveClusters` of the cluster body at that size and
+    shared memory on the current card; 0 on the global-memory body)."""
+    _build.build([LIB])
+    fn = ctypes.CDLL(_build.library_path(LIB)).lz4t_probe_chase_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    k, active = ctypes.c_int(), ctypes.c_int()
+    cm.check_rc(fn(n, ctypes.byref(k), ctypes.byref(active)),
+                "probe_gather chase plan")
+    return {"chase_route": "cluster" if k.value else "global",
+            "cluster": k.value, "max_active_clusters": active.value}
 
 
 def gather(body: str, a, b=None, *, steps: int | None = None, device=None):
@@ -187,6 +240,9 @@ def gather(body: str, a, b=None, *, steps: int | None = None, device=None):
         out = torch.empty((nb, steps // c, c), dtype=torch.int32, device=dev)
     else:
         out = torch.empty_like(a)
+    if body == "chase" and a.data_ptr() % 16:
+        # the cluster body copies its words with 16-byte bulk copies
+        a = ins[0] = a.clone()
     scratch = torch.empty_like(a) if body == "chase" else None
     stats = torch.empty((nb, 2), dtype=torch.int64, device=dev)
     rc = cm.launch(_build.load(LIB), dev, a.data_ptr(), ins[-1].data_ptr(),
@@ -254,73 +310,111 @@ def hop_first_touches(ml: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
                          for b in range(nb)])
 
 
-def chase_l1_bytes(p: torch.Tensor, rounds: int) -> torch.Tensor:
+def chase_l1_bytes(p: torch.Tensor, rounds: int,
+                   granule: int = 32) -> torch.Tensor:
     """int64[B, rounds]: the bytes each of chase's rounds moves through a
-    block's L1 data path on these inputs. A warp takes 32 consecutive
-    words at a time: a 128-byte load of them, one 32-byte sector for each
-    distinct sector its gathers read (only lanes whose word is >= 0
-    gather: the function reads nothing for the others) and a 128-byte
-    store."""
+    block's L1 / shared-memory data path on these inputs. A warp takes 32
+    consecutive words at a time: a 128-byte load of them, `granule` bytes
+    for each distinct `granule`-byte piece its gathers read (only lanes
+    whose word is >= 0 gather: the function reads nothing for the others)
+    and a 128-byte store. The piece is an L1 sector (32, the global-memory
+    body) or a shared-memory bank's word (4)."""
     nb = p.shape[0]
     n = p[0].numel()
+    shift = (granule // 4).bit_length() - 1
     ptr = p.reshape(nb, n).to(torch.int64)
     out = []
     for _ in range(rounds):
         act = ptr >= 0
         c = ptr.clamp(0, n - 1)
-        sec = torch.where(act, c >> 3, -1).reshape(nb, -1, 32)
+        sec = torch.where(act, c >> shift, -1).reshape(nb, -1, 32)
         sec = sec.sort(-1).values
         new = (sec[..., 1:] != sec[..., :-1]) & (sec[..., 1:] >= 0)
         sectors = new.sum((1, 2)) + (sec[..., 0] >= 0).sum(1)
-        out.append(n // 32 * 256 + 32 * sectors)
+        out.append(n // 32 * 256 + granule * sectors)
         ptr = torch.where(act, ptr.gather(1, c), ptr)
     return torch.stack(out, 1).cpu()
 
 
-def chase_throughput(p: torch.Tensor, rounds: int) -> torch.Tensor:
+def chase_throughput(p: torch.Tensor, rounds: int,
+                     granule: int = 32) -> torch.Tensor:
     """float64[B]: the least SM cycles of each block's rounds by
-    throughput. Each round (all of a round's words are read before the
-    next round's) takes at least the larger of its least warp instructions
-    (`CHASE_WORD_INSTRUCTIONS` a word, 32 words a warp instruction) over
-    the 4 a clock the SM's schedulers take and its L1 bytes
-    (`chase_l1_bytes`) over the L1 data path's 128 a clock."""
+    throughput on one SM. Each round (all of a round's words are read
+    before the next round's) takes at least the larger of its least warp
+    instructions (`CHASE_WORD_INSTRUCTIONS` a word, 32 words a warp
+    instruction) over the 4 a clock the SM's schedulers take and its
+    bytes (`chase_l1_bytes` at `granule`) over the L1 / shared-memory data
+    path's 128 a clock."""
     n = p[0].numel()
     instr = n / 32 * CHASE_WORD_INSTRUCTIONS / WARP_INSTRUCTIONS_PER_CYCLE
-    l1 = chase_l1_bytes(p, rounds).to(torch.float64) / L1_BYTES_PER_CYCLE
+    l1 = chase_l1_bytes(p, rounds, granule).to(
+        torch.float64) / L1_BYTES_PER_CYCLE
     return l1.clamp(min=instr).sum(1)
 
 
-def _throughput_fields(p, rounds: int, stats, ms: float, floor) -> dict:
-    """chase's throughput bound beside its chain bound: the block with
-    the most cycles' least time (`throughput_bound_cycles`), in ms at the
-    floor's clock and as a share of `ms`, and `throughput_cycles_share`,
-    the highest of a block's bound over the cycles its clock64 took."""
+def chase_card_bound(p: torch.Tensor, rounds: int, sms: int) -> float:
+    """The least SM cycles the card could take for chase on `p`: every
+    block's rounds' least cycles on one SM (`chase_throughput`), summed
+    and spread over the card's `sms` SMs. A gather is priced at 4 bytes a
+    distinct word a warp reads, a shared-memory bank's width, which no
+    body beats in L1 (a 32-byte sector) or in shared memory; a remote
+    read of distributed shared memory is priced as a local one, though
+    what it costs its SMs is not measured."""
+    return float(chase_throughput(p, rounds, 4).sum()) / sms
+
+
+def _throughput_fields(p, rounds: int, stats, ms: float, floor,
+                       sms: int) -> dict:
+    """chase's throughput bound beside its chain bound: the card's least
+    cycles (`chase_card_bound` over `sms` SMs: `throughput_bound_cycles`),
+    in ms at the floor's clock and as a share of `ms`, and
+    `throughput_cycles_share`, that bound over the cycles of the slowest
+    block's clock64; beside them the one-SM least of that block with
+    gathers priced by L1 sectors (`throughput_bound_cycles_one_sm`,
+    `chase_throughput`)."""
     cycles = stats[:, 0].cpu().to(torch.float64)
-    bound = chase_throughput(p, rounds)
     at = int(cycles.argmax())
-    b_ms = float(bound[at]) / (floor.sm_mhz * 1e3)
-    return {"throughput_bound_cycles": float(bound[at]),
+    card = chase_card_bound(p, rounds, sms)
+    b_ms = card / (floor.sm_mhz * 1e3)
+    return {"sms": sms, "throughput_bound_cycles": card,
+            "throughput_bound_cycles_one_sm": float(
+                chase_throughput(p, rounds)[at]),
             "throughput_bound_ms": b_ms,
             "throughput_share": b_ms / ms if ms > 0 else float("inf"),
-            "throughput_cycles_share": float((bound / cycles).max())}
+            "throughput_cycles_share": card / float(cycles[at])
+            if cycles[at] > 0 else float("inf")}
 
 
-def _chase_report(p):
-    """chase's report: its chain report (`_chain_report`) and, given a
-    floor, its throughput bound on its input `p` (`_throughput_fields`)."""
-    chain = _chain_report("chase")
+def _chase_report(p, plan: dict, sms: int):
+    """chase's report: its route (`plan`, from `chase_plan`), its chain
+    report on that route (`_chain_report`) and, given a floor, its
+    throughput bound on its input `p` over `sms` SMs
+    (`_throughput_fields`)."""
+    chain = _chain_report("chase", n=p[0].numel(), cluster=plan["cluster"])
 
     def report(stats, ms: float, floor=None) -> dict:
-        r = chain(stats, ms, floor)
+        r = {**plan, **chain(stats, ms, floor)}
         if floor is not None:
             r.update(_throughput_fields(p, int(stats[:, 1].max()), stats,
-                                        ms, floor))
+                                        ms, floor, sms))
         return r
     return report
 
 
-def _chain_report(body: str, ml=None):
-    words = B * R * C
+def _chase_chain(cluster: int, steps: int) -> dict:
+    """chase's chain a round, by instruction class, on the body it was
+    launched on (`cluster` CTAs a block, 0 for the global-memory body): on
+    the cluster body a local and a remote shared-memory load (both priced
+    as LDS) and the ALU ops between them, plus the bulk copy that loads
+    the block, once (priced as an L2 hit); on the global-memory body both
+    loads from L2 (ld.global.cg)."""
+    if cluster:
+        return {**CHAINS["chase"], "ldg_l2": 1 / max(steps, 1)}
+    return {**CHAINS["chase_global"], "ldg_l2": 2}
+
+
+def _chain_report(body: str, ml=None, n: int = R * C, cluster: int = 0):
+    words = B * n
 
     def report(stats, ms: float, floor=None) -> dict:
         if stats is None:
@@ -335,17 +429,17 @@ def _chain_report(body: str, ml=None):
         # (two reads and one write a step)
         b_ms, by = cm.bound(8 * words if body == "chase"
                             else 12 * B * STEPS)
-        # two loads a step: chase's first round reads the input for the
-        # first time (L2), its later rounds what the thread wrote; hops'
-        # block with the most first touches is its longest chain
         if body == "chase":
-            cold, at = 1, st[:, 1] == steps
+            at = st[:, 1] == steps
+            per_step = _chase_chain(cluster, steps)
         else:
+            # two loads a step; the block with the most first touches (L2)
+            # is the longest chain
             touches = hop_first_touches(ml, out)
             cold = int(touches.max())
             at = touches == cold
-        cold /= max(steps, 1)
-        per_step = {**CHAINS[body], "ldg_l2": cold, "ldg_l1": 2 - cold}
+            cold /= max(steps, 1)
+            per_step = {**CHAINS[body], "ldg_l2": cold, "ldg_l1": 2 - cold}
         return {"steps": steps, "longest_chain": steps,
                 "ns_per_step": ms * 1e6 / max(steps, 1),
                 "cycles_per_step": float((st[:, 0] / st[:, 1].clamp(
@@ -355,16 +449,41 @@ def _chain_report(body: str, ml=None):
     return report
 
 
+def _chase_body(name: str, p: torch.Tensor, sms: int) -> cm.Body:
+    """chase with `ROUNDS` rounds on `p` (int32[B, r, c] on the card), its
+    route asked of the library (`chase_plan`)."""
+    nb, r, c = p.shape
+
+    def run():
+        got, stats = gather("chase", p)
+        return (got,), stats
+    return cm.Body(name, REPLACES["chase"], run,
+                   lambda: (gather_plain("chase", p, steps=ROUNDS),),
+                   _chase_report(p, chase_plan(r * c), sms),
+                   {"B": nb, "R": r, "C": c})
+
+
 def bodies() -> list[cm.Body]:
     """Every body at the tool's sizes on the card's copy of `inputs()`,
-    with `torch.gather` of the same function for lane, row and flat."""
+    with `torch.gather` of the same function for lane, row and flat; and
+    chase once more at int32[B, GLOBAL_R, C], past the cluster's reach,
+    on its global-memory body (`P1 k_chase global`)."""
     d = {k: torch.from_numpy(v).cuda() for k, v in inputs().items()}
     lib = {"lane": (d["x"], 2, d["lane"].to(torch.int64)),
            "row": (d["x"], 1, d["row"].to(torch.int64)),
            "flat": (d["x"].reshape(B, R * C), 1,
                     d["flat"].reshape(B, R * C).to(torch.int64))}
+    sms = torch.cuda.get_device_properties(
+        d["chase"].device).multi_processor_count
+    n = GLOBAL_R * C
+    far = torch.from_numpy(np.random.default_rng(4).integers(
+        -n, n, (B, GLOBAL_R, C)).astype(np.int32)).cuda()
     out = []
     for body in VARIANTS:
+        if body == "chase":
+            out.append(_chase_body("P1 k_chase", d["chase"], sms))
+            out.append(_chase_body("P1 k_chase global", far, sms))
+            continue
         args = _args(body, d)
 
         def run(body=body, args=args):
@@ -376,8 +495,7 @@ def bodies() -> list[cm.Body]:
                                  else ROUNDS),)
         out.append(cm.Body(
             f"P1 k_{body}", REPLACES[body], run, plain,
-            _chase_report(d["chase"]) if body == "chase"
-            else _chain_report(body, d["ml"]),
+            _chain_report(body, d["ml"]),
             {"steps": STEPS} if body == "hops" else {"B": B, "R": R, "C": C},
             partial(torch.gather, *lib[body]) if body in lib else None,
             host=body in lib, flushed=body in lib))

@@ -7,11 +7,11 @@ the dependency barrier a variable-latency result (a load, LDS) sets
 instruction waits on first (`wait`, a mask of the warp's 6). The stall
 counts of a loop's body, summed, are the least SM cycles an iteration
 takes as nvcc scheduled it, before any wait on a barrier; the waits are
-what the loads' latency adds. `library_loops` reads a built library's
-loops with the toolkit's `cuobjdump` (so on the card's machine; `python
--m lz4_tpu_torch.probes.walk_probe --inflight` prints them beside the
-cycles its builds take); `parse` and `loops` read any `cuobjdump -sass`
-text.
+what the loads' latency adds. `library_sass` and `library_loops` read a
+built library's function and its loops with the toolkit's `cuobjdump`
+(so on the card's machine; `python -m lz4_tpu_torch.probes.walk_probe
+--inflight` prints them beside the cycles its builds take); `parse`,
+`loops` and `load_opcodes` read any `cuobjdump -sass` text.
 """
 from __future__ import annotations
 
@@ -90,16 +90,28 @@ def loops(ins, min_loads: int = 0) -> list[dict]:
     return out
 
 
-def library_loops(name: str, defines=(), function: str = "walk_kernel",
-                  min_loads: int = 0) -> list[dict]:
-    """`loops` of `function` in kernel library `name` built with
-    `defines` (building it if needed), read with the toolkit's
-    cuobjdump."""
+def load_opcodes(ins) -> list[str]:
+    """The distinct load opcodes of `parse`'s instructions, with their
+    modifiers (`LDG.E.STRONG.GPU`, `LDS.128`, ...), sorted."""
+    return sorted({_opcode(t) for _, t, _ in ins
+                   if _opcode(t).startswith(LOADS)})
+
+
+def library_sass(name: str, defines=(), function: str = "walk_kernel"):
+    """`parse` of `function` in kernel library `name` built with `defines`
+    (building it if needed), read with the toolkit's cuobjdump."""
     from lz4_tpu_torch import _build
     _build.build([name], defines)
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     text = subprocess.run(
         [tool, "-sass", _build.library_path(name, defines)],
         capture_output=True, text=True, check=True).stdout
-    return loops(parse(text, function), min_loads)
+    return parse(text, function)
+
+
+def library_loops(name: str, defines=(), function: str = "walk_kernel",
+                  min_loads: int = 0) -> list[dict]:
+    """`loops` of `function` in kernel library `name` built with
+    `defines` (`library_sass`)."""
+    return loops(library_sass(name, defines, function), min_loads)
 

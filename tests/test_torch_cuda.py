@@ -19,7 +19,9 @@ from lz4_tpu_torch.block.backend import HostBackend
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
 from lz4_tpu_torch.native import blockcodec, xxh
 from lz4_tpu_torch.parallel.engine import TorchBackend
-from lz4_tpu_torch.probes import (fullbench, gather_probe, lane_probe,
+from lz4_tpu_torch import _build
+from lz4_tpu_torch.probes import _common as cm
+from lz4_tpu_torch.probes import (fullbench, gather_probe, lane_probe, sass,
                                   torture, walk_probe)
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,
                                          gen_slot_words, gen_text)
@@ -746,6 +748,109 @@ def test_gather_probe_matches_plain(cuda, body):
     want, _ = gather_probe.gather(body, *args, steps=steps)
     assert torch.equal(got.cpu(), want)
     assert (stats is None) == (body in ("lane", "flat", "row"))
+
+
+#: chase's shapes on both sides of each cut of `chase_route`: the
+#: global-memory body (8, 16, 262,144 words) and clusters of 8 CTAs (32,
+#: the test shape 8,192, the probe's 65,536, 131,072)
+CHASE_SHAPES = {8: (2, 4), 16: (4, 4), 32: (4, 8), 8192: (64, 128),
+                65536: (512, 128), 131072: (1024, 128),
+                262144: (2048, 128)}
+
+
+def _chase_input(kind, r, c, seed=5):
+    n = r * c
+    rng = np.random.default_rng(seed)
+    lo, hi = {"mixed": (-n, n), "negative": (-2**31, 0),
+              "nonnegative": (0, 2 * n)}[kind]
+    return rng.integers(lo, hi, (3, r, c)).astype(np.int32)
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 7, 8, 9])
+@pytest.mark.parametrize("kind", ["mixed", "negative", "nonnegative"])
+@pytest.mark.parametrize("n", list(CHASE_SHAPES))
+def test_chase_routes_match_plain(cuda, n, kind, rounds):
+    """chase on each body (the route the library reports is
+    `chase_route`'s) equals the plain version bit for bit, on blocks of
+    mixed, all-negative and all-nonnegative words (some past N - 1); stats
+    hold each block's rounds and a positive cycle count."""
+    r, c = CHASE_SHAPES[n]
+    p = _chase_input(kind, r, c)
+    got, stats = gather_probe.gather("chase", torch.from_numpy(p).to(cuda),
+                                     steps=rounds)
+    want, _ = gather_probe.gather("chase", p, steps=rounds, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    st = stats.cpu()
+    assert st[:, 1].tolist() == [rounds] * 3 and bool((st[:, 0] > 0).all())
+    assert gather_probe.chase_plan(n)["cluster"] == gather_probe.chase_route(n)
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 8, 9])
+@pytest.mark.parametrize("n", [32, 8192, 65536, 131072])
+def test_chase_global_build_matches_plain(cuda, n, rounds):
+    """The -DLZ4T_CHASE_GLOBAL build sends the shapes that the default
+    build gives the cluster to the global-memory body; it equals the plain
+    version bit for bit there too, stats holding each block's rounds."""
+    r, c = CHASE_SHAPES[n]
+    p = _chase_input("mixed", r, c)
+    x = torch.from_numpy(p).to(cuda)
+    out, scratch = torch.empty_like(x), torch.empty_like(x)
+    stats = torch.empty((3, 2), dtype=torch.int64, device=cuda)
+    fn = _build.load(gather_probe.LIB, ("LZ4T_CHASE_GLOBAL",))
+    rc = cm.launch(fn, cuda, x.data_ptr(), x.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr(), stats.data_ptr(), 3, r, c,
+                   gather_probe.VARIANTS["chase"], rounds)
+    cm.check_rc(rc, "probe_gather chase (global build)")
+    want, _ = gather_probe.gather("chase", p, steps=rounds, device="cpu")
+    assert torch.equal(out.cpu(), want)
+    assert stats.cpu()[:, 1].tolist() == [rounds] * 3
+
+
+def test_chase_plan_on_card(cuda):
+    """Every cluster size chase launches can be resident (one cluster at
+    least); the global-memory body reports none."""
+    for n in CHASE_SHAPES:
+        plan = gather_probe.chase_plan(n)
+        k = gather_probe.chase_route(n)
+        assert plan["cluster"] == k
+        assert plan["chase_route"] == ("cluster" if k else "global")
+        assert (plan["max_active_clusters"] > 0) == bool(k)
+
+
+def test_chase_misaligned_views(cuda):
+    """A view that starts 4 bytes past a 16-byte boundary: the wrapper
+    copies it for the cluster body's bulk copies, and the C launcher
+    refuses a misaligned output (cudaErrorMisalignedAddress) rather than
+    run it."""
+    p = _chase_input("mixed", 64, 128)
+    flat = torch.from_numpy(p).to(cuda).reshape(-1)
+    room = torch.empty(flat.numel() + 4, dtype=torch.int32, device=cuda)
+    room[1:1 + flat.numel()] = flat
+    view = room[1:1 + flat.numel()].view(3, 64, 128)
+    got, _ = gather_probe.gather("chase", view)
+    want, _ = gather_probe.gather("chase", p, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    out = torch.empty(flat.numel() + 4, dtype=torch.int32, device=cuda)[1:]
+    stats = torch.empty((3, 2), dtype=torch.int64, device=cuda)
+    rc = cm.launch(_build.load(gather_probe.LIB), cuda, flat.data_ptr(),
+                   flat.data_ptr(), out.data_ptr(), out.data_ptr(),
+                   stats.data_ptr(), 3, 64, 128, 3, 8)
+    assert rc == 716
+
+
+def test_chase_sass_loads(cuda):
+    """C4: the global-memory body reads no buffer through the read-only
+    path (no load with .CONSTANT anywhere in chase_kernel); the cluster
+    body loads no global memory at all (its block arrives by bulk copy),
+    and its round loop loads shared memory only."""
+    ins = sass.library_sass(gather_probe.LIB, (), "chase_kernel")
+    loads = sass.load_opcodes(ins)
+    assert any(op.startswith("LDG") for op in loads)
+    assert not any(".CONSTANT" in t for _, t, _ in ins), loads
+    ins = sass.library_sass(gather_probe.LIB, (), "chase_cluster_kernel")
+    loads = sass.load_opcodes(ins)
+    assert loads and not any(op.startswith("LDG") for op in loads), loads
+    assert any(lp["loads"] for lp in sass.loops(ins, 1))
 
 
 @pytest.mark.parametrize("body", ["lane", "flat", "row", "hops"])

@@ -912,10 +912,17 @@ def _report_case(case):
         return (rep, stats, steps, {**gather_probe.CHAINS["hops"], **per},
                 cycles)
     if case == "chase":
+        # the probe's block (65,536 words) takes the cluster body: two
+        # shared-memory loads a round, the bulk copy once
         stats = torch.tensor([[9_000, 8], [9_500, 8]])
-        return (gather_probe._chain_report("chase"), stats, 8,
-                {**gather_probe.CHAINS["chase"], "ldg_l2": 1 / 8,
-                 "ldg_l1": 2 - 1 / 8}, 9_500)
+        return (gather_probe._chain_report("chase", cluster=8), stats, 8,
+                {**gather_probe.CHAINS["chase"], "ldg_l2": 1 / 8}, 9_500)
+    if case == "chase-global":
+        # a block past the cluster's reach: both loads of a round from L2
+        stats = torch.tensor([[90_000, 8], [95_000, 8]])
+        return (gather_probe._chain_report("chase", n=1 << 18), stats, 8,
+                {**gather_probe.CHAINS["chase_global"], "ldg_l2": 2},
+                95_000)
     body = case.split("-")[1]
     steps = lane_probe.NIT // lane_probe.BODIES[body][3]
     kind = lane_probe.BODIES[body][1] or "wave"
@@ -926,7 +933,7 @@ def _report_case(case):
 
 @pytest.mark.parametrize("case", [
     "burn-arbitrary", "burn-parallel", "walk-a", "walk-d", "hops", "chase",
-    "lane-t_onehot", "lane-t_a0_512", "lane-t_base", "lane-t_wave"])
+    "chase-global", "lane-t_onehot", "lane-t_a0_512", "lane-t_base", "lane-t_wave"])
 def test_chain_report_arithmetic(case):
     """A body's chain bound on synthetic stats: the longest chain, its
     cycles (instructions a step by class at the floor's prices, times the
@@ -968,7 +975,9 @@ def test_chase_throughput_bound():
     word is >= 0 gather; the rest read nothing); its cycles the larger of
     those over 128 bytes a clock and the function's least instructions (5
     a word: two loads, a store, the predicate and the gather's address)
-    over 4 warp instructions a clock, a round at a time."""
+    over 4 warp instructions a clock, a round at a time, on one SM
+    (`throughput_bound_cycles_one_sm`, the slowest block's). The card's
+    figure prices a gather at 4 bytes a distinct word instead."""
     p = torch.full((1, 2, 32), -1, dtype=torch.int32)
     p[0, 0, :8] = torch.arange(8)      # one sector; ptr[ptr] keeps them
     p[0, 1, :3] = torch.tensor([63, 40, 9])     # three sectors, then -1s
@@ -984,21 +993,100 @@ def test_chase_throughput_bound():
     assert float(gather_probe.chase_throughput(none, 3)[0]) == 3 * 4.0
     stats = torch.tensor([[4 * want, 2], [2 * want, 2]]).to(torch.float64)
     two = torch.cat([p, p])
-    r = gather_probe._throughput_fields(two, 2, stats, 0.5, FLOOR)
-    assert r["throughput_bound_cycles"] == want
-    assert r["throughput_bound_ms"] == pytest.approx(want / 1.5e6)
-    assert r["throughput_share"] == pytest.approx(want / 1.5e6 / 0.5)
-    assert r["throughput_cycles_share"] == pytest.approx(0.5)
-    # chase's report is its chain report with the throughput bound added
+    r = gather_probe._throughput_fields(two, 2, stats, 0.5, FLOOR, 1)
+    assert r["throughput_bound_cycles_one_sm"] == want
+    # a card of one SM: the two blocks' word-priced leasts add up (8 + 3
+    # gathered words, then 8), against the slowest block's 4 want cycles
+    words = gather_probe.chase_l1_bytes(p, 2, 4)
+    assert words.tolist() == [[2 * 256 + 4 * (8 + 3), 2 * 256 + 4 * 8]]
+    card = 2 * sum(max(instr, b / 128) for b in words[0].tolist())
+    assert card < 2 * want
+    assert r["throughput_bound_cycles"] == card
+    assert r["throughput_bound_ms"] == pytest.approx(card / 1.5e6)
+    assert r["throughput_share"] == pytest.approx(card / 1.5e6 / 0.5)
+    assert r["throughput_cycles_share"] == pytest.approx(card / (4 * want))
+
+
+def test_chase_card_bound():
+    """The card's least for chase: each block's one-SM least, gathers
+    priced by words, summed and spread over the card's SMs, held to the
+    slowest block's cycles. Two blocks of 64 words, 2 rounds: block 0 all
+    -1 (a round: 512 bytes of loads and stores, 4 clocks, over 2.5 clocks
+    of instructions), block 1 with 0..31 in its first group (a round adds
+    32 gathered words, 4 sectors, 128 bytes either way: 5 clocks; ptr[ptr]
+    keeps them)."""
+    p = torch.full((2, 2, 32), -1, dtype=torch.int32)
+    p[1, 0] = torch.arange(32)
+    assert gather_probe.chase_throughput(p, 2).tolist() == [8.0, 10.0]
+    assert gather_probe.chase_throughput(p, 2, 4).tolist() == [8.0, 10.0]
+    assert gather_probe.chase_card_bound(p, 2, 1) == 18.0
+    assert gather_probe.chase_card_bound(p, 2, 132) == 18.0 / 132
+    stats = torch.tensor([[30, 2], [40, 2]])
+    r = gather_probe._throughput_fields(p, 2, stats, 0.01, FLOOR, 132)
+    assert r["sms"] == 132
+    assert r["throughput_bound_cycles"] == 18.0 / 132
+    assert r["throughput_bound_cycles_one_sm"] == 10.0   # block 1's
+    assert r["throughput_cycles_share"] == pytest.approx(18.0 / 132 / 40)
+    assert r["throughput_bound_ms"] == pytest.approx(18.0 / 132 / 1.5e6)
+    assert r["throughput_share"] == pytest.approx(
+        18.0 / 132 / 1.5e6 / 0.01)
+
+
+def test_chase_report_fields():
+    """chase's report: its plan (route, cluster size, clusters resident),
+    its chain report, and with a floor its throughput bound over the
+    card's SMs beside the one-SM one; without a floor no bound's share."""
+    p = torch.full((2, 2, 32), -1, dtype=torch.int32)
+    p[0, 0, :8] = torch.arange(8)
+    plan = {"chase_route": "cluster", "cluster": 8,
+            "max_active_clusters": 45}
     st = torch.tensor([[9_000, 2], [9_500, 2]])
-    rep = gather_probe._chase_report(two)(st, 0.5, FLOOR)
-    chain = gather_probe._chain_report("chase")(st, 0.5, FLOOR)
-    assert rep == {**chain, **gather_probe._throughput_fields(
-        two, 2, st, 0.5, FLOOR)}
-    assert rep["throughput_bound_cycles"] == want and "chain_share" in rep
-    # without a floor, no bound of either kind
-    assert not any("share" in k for k in gather_probe._chase_report(two)(
-        st, 0.5, None))
+    rep = gather_probe._chase_report(p, plan, 132)(st, 0.5, FLOOR)
+    chain = gather_probe._chain_report("chase", n=64, cluster=8)(
+        st, 0.5, FLOOR)
+    assert rep == {**plan, **chain, **gather_probe._throughput_fields(
+        p, 2, st, 0.5, FLOOR, 132)}
+    assert {"chase_route", "cluster", "max_active_clusters", "sms",
+            "throughput_bound_cycles", "throughput_bound_cycles_one_sm",
+            "throughput_bound_ms", "throughput_share",
+            "throughput_cycles_share", "chain_cycles_share"} <= set(rep)
+    assert rep["chain"] == {**gather_probe.CHAINS["chase"], "ldg_l2": 0.5}
+    bare = gather_probe._chase_report(p, plan, 132)(st, 0.5, None)
+    assert not any("share" in k for k in bare)
+    assert {k: bare[k] for k in plan} == plan
+    # the chain follows the route the library reported: both loads from
+    # L2 on the global-memory body
+    off = {"chase_route": "global", "cluster": 0, "max_active_clusters": 0}
+    far = gather_probe._chase_report(p, off, 132)(st, 0.5, FLOOR)
+    assert far["chain"] == {**gather_probe.CHAINS["chase_global"],
+                            "ldg_l2": 2}
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, 0), (8, 0), (16, 0), (32, 8), (64, 8), (8192, 8), (65536, 8),
+    (131072, 8), (262144, 0), (1 << 26, 0)])
+def test_chase_route(n, want):
+    """chase's cut: a cluster of 8 CTAs from 32 words (4 a CTA) to
+    131,072 (16,384 a CTA), the global-memory body under 32 and past
+    131,072."""
+    assert gather_probe.chase_route(n) == want
+
+
+@pytest.mark.parametrize("granule,want", [
+    (32, [2 * 256 + 32 * 8, 2 * 256 + 32 * 8]),
+    (4, [2 * 256 + 4 * 32, 2 * 256 + 4 * 16])])
+def test_chase_bytes_by_granule(granule, want):
+    """chase's bytes a round with gathers priced by L1 sectors (32) or by
+    shared-memory words (4): 32 lanes gathering the even words 0..62 read
+    32 words in 8 sectors; the next round the 16 still live (4i, i < 16)
+    read 16 words in the same 8 sectors."""
+    p = torch.full((1, 2, 32), -1, dtype=torch.int32)
+    p[0, 0] = 2 * torch.arange(32)
+    assert gather_probe.chase_l1_bytes(p, 2, granule).tolist() == [want]
+    cycles = sum(max(2.5, b / 128) for b in want)
+    assert float(gather_probe.chase_throughput(p, 2, granule)[0]) == cycles
+    if granule == 4:
+        assert gather_probe.chase_card_bound(p, 2, 2) == cycles / 2
 
 
 @pytest.mark.parametrize("chain", ["lds", "l1", "l2", "imad", "fp32",
