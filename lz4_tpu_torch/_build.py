@@ -29,6 +29,8 @@ import sysconfig
 import threading
 import time
 
+from lz4_tpu_torch.spans import span
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -65,6 +67,10 @@ KERNELS = {
 _LIBS: dict[tuple, ctypes.CDLL] = {}
 _MODULES: dict[str, object] = {}
 _LOCK = threading.Lock()
+#: the builds this process ran: kernel name (with `:` and its defines
+#: where it has any) -> seconds nvcc took; a library found built is not
+#: listed
+built: dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -139,6 +145,7 @@ def build(names=None, defines=()) -> dict[str, float]:
     for name, (proc, so, tmp, t0) in started.items():
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
+        built[":".join((name, *defines))] = secs[name]
         with open(f"{so}.log", "wb") as f:
             f.write(log)
         if proc.returncode != 0:
@@ -170,7 +177,8 @@ def load(name: str, defines=()):
     with _LOCK:
         lib = _LIBS.get((name, defines))
         if lib is None:
-            build([name], defines)
+            with span("lz4t.build"):
+                build([name], defines)
             lib = ctypes.CDLL(library_path(name, defines))
             fn_name, argtypes = KERNELS[name]
             fn = getattr(lib, fn_name)
@@ -186,7 +194,8 @@ def module(name: str):
     with _LOCK:
         mod = _MODULES.get(name)
         if mod is None:
-            build([name])
+            with span("lz4t.build"):
+                build([name])
             loader = importlib.machinery.ExtensionFileLoader(
                 f"lz4t_{name}", library_path(name))
             spec = importlib.util.spec_from_loader(loader.name, loader)

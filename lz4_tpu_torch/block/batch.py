@@ -15,6 +15,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from lz4_tpu_torch.spans import span
+
 #: dict/linked history window (the LZ4 format's 64 KB)
 DICT_CAP = 65536
 
@@ -55,24 +57,27 @@ def pack_blocks(blocks: Sequence[bytes],
     each prefix right-aligned and `dict_lens int32[B]` its length (0 where
     the prefix is None or empty).
     """
-    rows = len(blocks)
-    src = np.zeros((rows, cap), np.uint8)
-    lens = np.zeros(rows, np.int32)
-    for i, blk in enumerate(blocks):
-        if len(blk) > cap:
-            raise ValueError(f"block {i} holds {len(blk)} bytes > cap {cap}")
-        src[i, : len(blk)] = np.frombuffer(blk, np.uint8)
-        lens[i] = len(blk)
-    if not with_dict:
-        return src, lens, None, None
-    dict_bufs = np.zeros((rows, DICT_CAP), np.uint8)
-    dict_lens = np.zeros(rows, np.int32)
-    for i, d in enumerate(dict_prefixes or ()):
-        if d:
-            d = bytes(d)[-DICT_CAP:]
-            dict_bufs[i, DICT_CAP - len(d):] = np.frombuffer(d, np.uint8)
-            dict_lens[i] = len(d)
-    return src, lens, dict_bufs, dict_lens
+    with span("lz4t.pack"):
+        rows = len(blocks)
+        src = np.zeros((rows, cap), np.uint8)
+        lens = np.zeros(rows, np.int32)
+        for i, blk in enumerate(blocks):
+            if len(blk) > cap:
+                raise ValueError(
+                    f"block {i} holds {len(blk)} bytes > cap {cap}")
+            src[i, : len(blk)] = np.frombuffer(blk, np.uint8)
+            lens[i] = len(blk)
+        if not with_dict:
+            return src, lens, None, None
+        dict_bufs = np.zeros((rows, DICT_CAP), np.uint8)
+        dict_lens = np.zeros(rows, np.int32)
+        for i, d in enumerate(dict_prefixes or ()):
+            if d:
+                d = bytes(d)[-DICT_CAP:]
+                dict_bufs[i, DICT_CAP - len(d):] = np.frombuffer(
+                    d, np.uint8)
+                dict_lens[i] = len(d)
+        return src, lens, dict_bufs, dict_lens
 
 
 def _tensor(a, dtype: torch.dtype, ndim: int, name: str,
@@ -102,19 +107,20 @@ def to_device_batch(src, lens, dict_bufs=None, dict_lens=None, *,
     device (the dict pair stays None when not given). Raises on a wrong
     type, shape, device or layout.
     """
-    device = resolve_device(device)
-    src_t = _tensor(src, torch.uint8, 2, "src", device)
-    lens_t = _tensor(lens, torch.int32, 1, "lens", device)
-    if lens_t.shape[0] != src_t.shape[0]:
-        raise ValueError("lens must hold one length per row of src")
-    if (dict_bufs is None) != (dict_lens is None):
-        raise ValueError("dict_bufs and dict_lens go together")
-    if dict_bufs is None:
-        return src_t, lens_t, None, None
-    db_t = _tensor(dict_bufs, torch.uint8, 2, "dict_bufs", device)
-    dl_t = _tensor(dict_lens, torch.int32, 1, "dict_lens", device)
-    if tuple(db_t.shape) != (src_t.shape[0], DICT_CAP) or \
-            dl_t.shape[0] != src_t.shape[0]:
-        raise ValueError("dict_bufs must be uint8[B, 65536] with "
-                         "dict_lens int32[B]")
-    return src_t, lens_t, db_t, dl_t
+    with span("lz4t.h2d"):
+        device = resolve_device(device)
+        src_t = _tensor(src, torch.uint8, 2, "src", device)
+        lens_t = _tensor(lens, torch.int32, 1, "lens", device)
+        if lens_t.shape[0] != src_t.shape[0]:
+            raise ValueError("lens must hold one length per row of src")
+        if (dict_bufs is None) != (dict_lens is None):
+            raise ValueError("dict_bufs and dict_lens go together")
+        if dict_bufs is None:
+            return src_t, lens_t, None, None
+        db_t = _tensor(dict_bufs, torch.uint8, 2, "dict_bufs", device)
+        dl_t = _tensor(dict_lens, torch.int32, 1, "dict_lens", device)
+        if tuple(db_t.shape) != (src_t.shape[0], DICT_CAP) or \
+                dl_t.shape[0] != src_t.shape[0]:
+            raise ValueError("dict_bufs must be uint8[B, 65536] with "
+                             "dict_lens int32[B]")
+        return src_t, lens_t, db_t, dl_t

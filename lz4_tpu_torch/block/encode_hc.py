@@ -25,6 +25,7 @@ import torch
 
 from lz4_tpu_torch.block.batch import to_device_batch
 from lz4_tpu_torch.constants import LASTLITERALS, MFLIMIT, compress_bound
+from lz4_tpu_torch.spans import span
 
 HASH_LOG = 15
 HASH_MUL = 2654435761          # Knuth multiplier
@@ -66,28 +67,29 @@ def encode_blocks_hc(src, lens, *, cap_n: int, level: int = 9,
     if src.shape[1] != cap_n:
         raise ValueError(f"src must be uint8[B, {cap_n}], got "
                          f"{tuple(src.shape)}")
-    if src.device.type == "cpu":
-        return encode_blocks_hc_plain(src, lens, cap_n=cap_n, level=level,
-                                      favor_dec_speed=favor_dec_speed)
-    if src.device.type != "cuda":
-        raise ValueError(f"no B5 kernel for device {src.device}")
-    B = src.shape[0]
-    bound = compress_bound(cap_n)
-    out = torch.empty((B, bound), dtype=torch.uint8, device=src.device)
-    csizes = torch.empty(B, dtype=torch.int32, device=src.device)
-    trailing = torch.empty(B, dtype=torch.int32, device=src.device)
-    if B == 0:
-        return out, csizes, trailing
-    from lz4_tpu_torch import _build
-    fn = _build.load("encode_hc")
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = fn(src.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                csizes.data_ptr(), trailing.data_ptr(), B, cap_n, bound,
-                depth_for(level), int(bool(favor_dec_speed)), stream)
-    if rc != 0:
-        raise RuntimeError(f"B5 encode_hc launch failed: CUDA error {rc}")
-    launches += 1
+    with span("lz4t.launch"):
+        if src.device.type == "cpu":
+            return encode_blocks_hc_plain(src, lens, cap_n=cap_n, level=level,
+                                          favor_dec_speed=favor_dec_speed)
+        if src.device.type != "cuda":
+            raise ValueError(f"no B5 kernel for device {src.device}")
+        B = src.shape[0]
+        bound = compress_bound(cap_n)
+        out = torch.empty((B, bound), dtype=torch.uint8, device=src.device)
+        csizes = torch.empty(B, dtype=torch.int32, device=src.device)
+        trailing = torch.empty(B, dtype=torch.int32, device=src.device)
+        if B == 0:
+            return out, csizes, trailing
+        from lz4_tpu_torch import _build
+        fn = _build.load("encode_hc")
+        with torch.cuda.device(src.device):
+            stream = torch.cuda.current_stream(src.device).cuda_stream
+            rc = fn(src.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                    csizes.data_ptr(), trailing.data_ptr(), B, cap_n, bound,
+                    depth_for(level), int(bool(favor_dec_speed)), stream)
+        if rc != 0:
+            raise RuntimeError(f"B5 encode_hc launch failed: CUDA error {rc}")
+        launches += 1
     return out, csizes, trailing
 
 

@@ -69,6 +69,7 @@ from lz4_tpu_torch.block.encode_cuda import encode_blocks
 from lz4_tpu_torch.block.encode_hc import encode_blocks_hc
 from lz4_tpu_torch.block.encode_wave import (HASH_BITS, encode_wave_batch,
                                              find_matches)
+from lz4_tpu_torch.spans import span
 
 SEG = 65536
 #: HC levels served by kernel B5 (`lz4_tpu` engine.py:576)
@@ -395,10 +396,13 @@ class TorchBackend:
                                    acceleration=acceleration,
                                    max_dist=max_dist)
         out, csizes, trailing = self._run(fn, *arrays)
-        out = out.cpu().numpy()
-        csizes = csizes.cpu().tolist()
-        return ([out[i, : csizes[i]].tobytes() for i in range(len(blocks))],
-                trailing.cpu().tolist())
+        with span("lz4t.d2h"):
+            out = out.cpu().numpy()
+            csizes = csizes.cpu().tolist()
+            trailing = trailing.cpu().tolist()
+        with span("lz4t.to_bytes"):
+            return ([out[i, : csizes[i]].tobytes()
+                     for i in range(len(blocks))], trailing)
 
     def _compress_big_batch(self, blocks, dict_prefixes, *, acceleration,
                             max_dist, level=1):
@@ -430,42 +434,43 @@ class TorchBackend:
     def compress_batch(self, blocks, *, level=0, acceleration=1,
                        dict_prefixes=None, favor_dec_speed=False,
                        max_dist=65535):
-        if not blocks:
-            return []
-        if max_dist < 65535:
-            return self._compress_maxd(blocks, level=level,
-                                       acceleration=acceleration,
-                                       dict_prefixes=dict_prefixes,
-                                       favor_dec_speed=favor_dec_speed,
-                                       max_dist=max_dist)
-        mx = max(len(b) for b in blocks)
-        has_dict = dict_prefixes is not None and any(
-            d for d in dict_prefixes)
-        if (level in HC_DEVICE_LEVELS and not has_dict
-                and self.serial_encode and self.codec is None
-                and self.min_device_size <= mx <= SEG
-                and not favor_dec_speed):
-            self.hc_encoded += 1
-            return self._compress_hc(blocks, level=level)
-        # level 2 runs on the sort/scan encoder whatever favor_dec_speed
-        # is (lz4_tpu engine.py:641-678); the other HC cases and blocks
-        # outside the size gate go to the host tier
-        if level > 2 or not (self.min_device_size <= mx
-                             <= self.max_device_size):
-            return self._host().compress_batch(
-                blocks, level=level, acceleration=acceleration,
-                dict_prefixes=dict_prefixes,
-                favor_dec_speed=favor_dec_speed)
-        if level == 2:
-            self.device_hc_encoded += 1
-        if mx > SEG:
-            return self._compress_big_batch(
-                blocks, dict_prefixes, acceleration=acceleration,
-                max_dist=max_dist, level=level)
-        out, _ = self._encode(blocks, dict_prefixes, cap_n=_pad_cap(mx),
-                              has_dict=has_dict, acceleration=acceleration,
-                              max_dist=max_dist, level=level)
-        return out
+        with span("lz4t.compress_batch"):
+            if not blocks:
+                return []
+            if max_dist < 65535:
+                return self._compress_maxd(blocks, level=level,
+                                           acceleration=acceleration,
+                                           dict_prefixes=dict_prefixes,
+                                           favor_dec_speed=favor_dec_speed,
+                                           max_dist=max_dist)
+            mx = max(len(b) for b in blocks)
+            has_dict = dict_prefixes is not None and any(
+                d for d in dict_prefixes)
+            if (level in HC_DEVICE_LEVELS and not has_dict
+                    and self.serial_encode and self.codec is None
+                    and self.min_device_size <= mx <= SEG
+                    and not favor_dec_speed):
+                self.hc_encoded += 1
+                return self._compress_hc(blocks, level=level)
+            # level 2 runs on the sort/scan encoder whatever favor_dec_speed
+            # is (lz4_tpu engine.py:641-678); the other HC cases and blocks
+            # outside the size gate go to the host tier
+            if level > 2 or not (self.min_device_size <= mx
+                                 <= self.max_device_size):
+                return self._host().compress_batch(
+                    blocks, level=level, acceleration=acceleration,
+                    dict_prefixes=dict_prefixes,
+                    favor_dec_speed=favor_dec_speed)
+            if level == 2:
+                self.device_hc_encoded += 1
+            if mx > SEG:
+                return self._compress_big_batch(
+                    blocks, dict_prefixes, acceleration=acceleration,
+                    max_dist=max_dist, level=level)
+            out, _ = self._encode(blocks, dict_prefixes, cap_n=_pad_cap(mx),
+                                  has_dict=has_dict, acceleration=acceleration,
+                                  max_dist=max_dist, level=level)
+            return out
 
     def _compress_hc(self, blocks, *, level):
         """No-dict HC batch of blocks <= 64 KB: one B5 launch."""
@@ -473,9 +478,12 @@ class TorchBackend:
         out, csizes, _ = encode_blocks_hc(
             *to_device_batch(src, lens, device=self.device)[:2], cap_n=SEG,
             level=level)
-        out = out.cpu().numpy()
-        csizes = csizes.cpu().tolist()
-        return [out[i, : csizes[i]].tobytes() for i in range(len(blocks))]
+        with span("lz4t.d2h"):
+            out = out.cpu().numpy()
+            csizes = csizes.cpu().tolist()
+        with span("lz4t.to_bytes"):
+            return [out[i, : csizes[i]].tobytes()
+                    for i in range(len(blocks))]
 
     def _compress_maxd(self, blocks, *, level, acceleration, dict_prefixes,
                        favor_dec_speed, max_dist):
