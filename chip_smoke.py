@@ -24,7 +24,12 @@ launch count set to 0 just before it and read just after:
   through the sequential decoder (B2);
 - the HC path: `TorchBackend.compress_batch(level=L)`, L = 3 and 9, over
   the 48 MB corpus in 64 KB blocks (one B5 launch each), byte-identical
-  to the host C `compress_hc` and round-tripped;
+  to the host C `compress_hc` and round-tripped; B5 alone on the 768
+  blocks (width 1, no cluster launch) and on the first 64 (the CLI's call
+  at `-B4`: width 2, a 2-CTA cluster a block, where the card holds 64
+  such clusters), its bytes equal to the 768-block call's, every launch
+  at width 2 counted in `encode_hc.cluster_launches`; B5's kernels entry
+  carries both times, the width and the card's clusters;
 - the level-2 path: the same batch on the sort/scan encoder (torch ops,
   no kernel launch), its bytes equal to the CPU's on sampled rows, a dict
   batch and blocks over 64 KB, round-tripped through the host C decoder;
@@ -1085,8 +1090,26 @@ def phase_hc_path(be):
             host_out[0][i, : host_out[1][i]].tobytes() for i in range(B)])
         log(f"HC level {level} compress steps (ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in steps.items()))
+        c0 = encode_hc.cluster_launches
         k_ms = cuda_ms(lambda: encode_hc.encode_blocks_hc(
             src_d, lens_d, cap_n=BLOCK, level=level), runs=3)
+        if encode_hc.cluster_launches != c0:
+            raise AssertionError(f"B5 on {B} blocks made a cluster launch")
+        # the CLI's call at -B4: 64 blocks, a 2-CTA cluster each where the
+        # card holds 64 clusters; its bytes equal the 768-block call's
+        n64, c64 = encode_hc.launches, encode_hc.cluster_launches
+        width64, clusters = encode_hc.plan(64)
+        ms64 = cuda_ms(lambda: encode_hc.encode_blocks_hc(
+            src_d[:64], lens_d[:64], cap_n=BLOCK, level=level), runs=3)
+        o64, cs64, tr64 = encode_hc.encode_blocks_hc(
+            src_d[:64], lens_d[:64], cap_n=BLOCK, level=level)
+        made = encode_hc.launches - n64
+        wide = encode_hc.cluster_launches - c64
+        if wide != (made if width64 == 2 else 0):
+            raise AssertionError(f"B5 at 64 blocks: {wide} cluster launches "
+                                 f"of {made} at width {width64}")
+        compare_hc((o64, cs64, tr64), tuple(x[:64].cpu() for x in out),
+                   f"64 blocks at width {width64}, level {level}")
         rows = list(range(0, B, B // HC_PLAIN_ROWS))[:HC_PLAIN_ROWS]
         src_c, lens_c = torch.from_numpy(src), torch.from_numpy(lens)
         p_ms, plain = host_ms(lambda: encode_hc.encode_blocks_hc_plain(
@@ -1095,11 +1118,14 @@ def phase_hc_path(be):
                    f"main-path rows, level {level}")
         log(f"kernel B5 level {level}: {k_ms:.3f} ms ({mb / k_ms * 1e3:.1f} "
             f"MB/s) on {B} blocks; B5 == plain on {len(rows)} rows; plain "
-            f"{p_ms:.1f} ms on {len(rows)} rows")
+            f"{p_ms:.1f} ms on {len(rows)} rows; 64 blocks at width "
+            f"{width64} ({clusters} clusters): {ms64:.3f} ms, "
+            f"{wide} of {made} launches cluster launches")
         nbytes = len(data) + B * 4 + csum + B * 8
         res[level] = {"launches": launches, "ms": k_ms, "plain_ms": p_ms,
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "err": 0, "plain_rows": len(rows)}
+                      "err": 0, "plain_rows": len(rows), "ms_64": ms64,
+                      "width_64": width64, "clusters": clusters}
 
     # B6 on the same device-resident batch (the bench's check, full size)
     lens_full = torch.full((B,), BLOCK, dtype=torch.int32, device="cuda")
@@ -2131,7 +2157,9 @@ def main() -> int:
          "bound_ms": hc[9]["bound_ms"], "level3_ms": hc[3]["ms"],
          "level3_launches": hc[3]["launches"]["B5"],
          "level3_plain_ms": hc[3]["plain_ms"],
-         "level3_bound_ms": hc[3]["bound_ms"], **b5_resources(),
+         "level3_bound_ms": hc[3]["bound_ms"], "ms_64": hc[9]["ms_64"],
+         "width_64": hc[9]["width_64"], "level3_ms_64": hc[3]["ms_64"],
+         "clusters": hc[9]["clusters"], **b5_resources(),
          **common, "plain_blocks": hc[9]["plain_rows"]},
         {"name": "B6 xxh32",
          "source": "lz4_tpu_torch/csrc/xxh32.cu",

@@ -18,8 +18,21 @@ arbitration as a machine over three states, the repeat-pattern analysis
 at depth > 128 (level 9), and `favor_dec_speed`, which drops candidates
 closer than 8. Its streams equal the JAX kernel's byte for byte, and so
 the port's C `compress_lazy` at the same depth.
+
+On the card each block is parsed by all the warps of one CTA of 32 warps,
+or of two. The launcher asks once a device how many clusters of two such
+CTAs the card holds at once (`plan`; 66 on an H100 SXM): a call of B
+blocks up to that many runs at width 2, a cluster of two CTAs (two SMs) a
+block, its positions cut into 256 speculative parts; a larger call runs at
+width 1, min(B, SMs) CTAs each looping over blocks, 128 parts a block.
+Each CTA of a pair keeps its own copy of the row and the chain deltas;
+the pair's 64 warps share the parts, the joins and the write-out through
+rank 0's shared memory. Nothing else picks the width, and the bytes are
+the same at both.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -40,11 +53,34 @@ _M32 = 0xFFFFFFFF
 
 #: kernel launches made by `encode_blocks_hc` (and nowhere else)
 launches = 0
+#: those of them at width 2 (a 2-CTA cluster a block)
+cluster_launches = 0
+_plan_fn = None
 
 
 def depth_for(level: int) -> int:
     """Chain search depth of an HC level (clamped to 0..12)."""
     return K_DEPTH[min(max(int(level), 0), 12)]
+
+
+def plan(B: int) -> tuple[int, int]:
+    """(width, clusters) of a B5 launch of B blocks on the current CUDA
+    device: the 2-CTA clusters of the kernel the card holds at once, and 2
+    where B is at most that, else 1 (the C launcher's rule)."""
+    global _plan_fn
+    if _plan_fn is None:
+        from lz4_tpu_torch import _build
+        _build.load("encode_hc")
+        fn = ctypes.CDLL(_build.library_path("encode_hc")).lz4t_encode_hc_plan
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _plan_fn = fn
+    width, clusters = ctypes.c_int(), ctypes.c_int()
+    rc = _plan_fn(int(B), ctypes.byref(width), ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"B5 plan failed: CUDA error {rc}")
+    return width.value, clusters.value
 
 
 def _check_cap(cap_n: int) -> None:
@@ -60,7 +96,7 @@ def encode_blocks_hc(src, lens, *, cap_n: int, level: int = 9,
     tensors launch B5. numpy arrays go to the GPU (raising where there is
     none).
     """
-    global launches
+    global launches, cluster_launches
     _check_cap(cap_n)
     device = src.device if isinstance(src, torch.Tensor) else None
     src, lens, _, _ = to_device_batch(src, lens, device=device)
@@ -87,9 +123,12 @@ def encode_blocks_hc(src, lens, *, cap_n: int, level: int = 9,
             rc = fn(src.data_ptr(), lens.data_ptr(), out.data_ptr(),
                     csizes.data_ptr(), trailing.data_ptr(), B, cap_n, bound,
                     depth_for(level), int(bool(favor_dec_speed)), stream)
-        if rc != 0:
-            raise RuntimeError(f"B5 encode_hc launch failed: CUDA error {rc}")
+            if rc != 0:
+                raise RuntimeError(
+                    f"B5 encode_hc launch failed: CUDA error {rc}")
+            wide = plan(B)[0] == 2
         launches += 1
+        cluster_launches += wide
     return out, csizes, trailing
 
 
@@ -453,7 +492,8 @@ def encode_blocks_hc_plain(src, lens, *, cap_n: int, level: int = 9,
 # --------------------------------------------------------------------------
 
 WARP = 32
-SEGMENTS = 128                 # speculative parses per block (B5's parts)
+SEGMENTS = 128                 # speculative parses per block at width 1
+PAIR_SEGMENTS = 256            # at width 2 (B5's parts on a 2-CTA cluster)
 
 
 def chain_deltas(src, lens, *, cap_n: int):
@@ -477,6 +517,18 @@ def chain_deltas(src, lens, *, cap_n: int):
     chain = torch.zeros((B, cap_n), dtype=torch.int64)
     chain.scatter_(1, order[:, 1:], delta)
     return chain.to(torch.int32)
+
+
+def pair_order(segments: int = PAIR_SEGMENTS) -> list[int]:
+    """The parts of a block in an order a pair of CTAs may take them from
+    their shared counter: in turns from the two halves (0, S/2, 1, S/2 + 1,
+    ...), so that with `ctas=2` the first CTA takes the first half and the
+    second the second half."""
+    half = -(-segments // 2)
+    out = []
+    for i in range(half):
+        out += [i] + ([half + i] if half + i < segments else [])
+    return out
 
 
 def segment_caps(cap_n: int, segments: int = SEGMENTS):
@@ -517,16 +569,28 @@ class HCLockstepModel:
     asserts, at every search, that search positions never decrease and
     that the pre-pass table holds what the inserts have written. With
     `batched` off every chain is walked one candidate a step (the
-    kernel's `LZ4T_B5_SERIAL_WALK` build)."""
+    kernel's `LZ4T_B5_SERIAL_WALK` build).
+
+    `order` (a permutation of the segments; default in turn) is the order
+    in which the parts are taken, in both phases, and `ctas` the CTAs
+    that take them: the i-th part taken marks in CTA i % ctas's own
+    marks, which are ORed together before the repairs, as a pair of CTAs
+    does (`pair_order`, `ctas=2`)."""
 
     def __init__(self, segments: int = SEGMENTS, caps=None,
-                 serial_check: bool = False, batched: bool = True):
+                 serial_check: bool = False, batched: bool = True,
+                 order=None, ctas: int = 1):
         if serial_check and segments != 1:
             raise ValueError("serial_check needs one segment")
+        order = list(range(segments)) if order is None else list(order)
+        if sorted(order) != list(range(segments)):
+            raise ValueError("order must be a permutation of the segments")
         self.segments = segments
         self.caps = caps
         self.serial_check = serial_check
         self.batched = batched
+        self.order = order
+        self.ctas = ctas
         self.searches = self.candidates = self.scored = self.bytes = 0
         self.steps = self.syncs = self.repaired = self.fallbacks = 0
 
@@ -706,13 +770,14 @@ class HCLockstepModel:
         L = max(mflimit + 1, 0)
         seg = -(-L // S)
         starts = [min(w * seg, L) for w in range(S)] + [L]
-        mark = bytearray(L)
-        specs, ends = [], []
-        for w in range(S):
+        marks = [bytearray(L) for _ in range(self.ctas)]
+        specs, ends = [None] * S, [None] * S
+        for i, w in enumerate(self.order):
             lst = []
             st = {"last": (starts[w], 0), "full": False}
 
-            def at_scan(ip, hi=starts[w + 1], lst=lst, st=st):
+            def at_scan(ip, hi=starts[w + 1], lst=lst, st=st,
+                        mark=marks[i % self.ctas]):
                 if st["full"] or ip >= hi:
                     return True
                 mark[ip] = 1
@@ -729,14 +794,17 @@ class HCLockstepModel:
             if st["full"]:      # back to its last state-0 turn
                 e, k = st["last"]
                 del lst[k:]
-            specs.append(lst)
-            ends.append(e)
+            specs[w] = lst
+            ends[w] = e
+        mark = marks[0]         # each CTA's marks, ORed
+        for m in marks[1:]:
+            mark = bytes(a | b for a, b in zip(mark, m))
 
         def owner(ip):
             return ip // seg
 
-        repairs, overflow = [], False
-        for w in range(S):
+        repairs, overflow = [None] * S, False
+        for w in self.order:
             lst, st = [], {"sync": None}
 
             def at_scan(ip, st=st):
@@ -753,7 +821,7 @@ class HCLockstepModel:
                     overflow = True
 
             _machine(search, mflimit, ends[w], at_scan, commit)
-            repairs.append((lst, st["sync"]))
+            repairs[w] = (lst, st["sync"])
         if overflow:
             self.fallbacks += 1
             seqs = []

@@ -1,5 +1,6 @@
-// B5: LZ4 HC block encoder, levels 3-9: one CTA of 32 warps per SM, each
-// taking one LZ4 block at a time and parsing it with all its warps.
+// B5: LZ4 HC block encoder, levels 3-9: each LZ4 block parsed by all the
+// warps of one CTA of 32 warps (an SM), or of a cluster of two such CTAs
+// where the call's blocks fit on the card two SMs each.
 //
 // Replaces: lz4_tpu/block/encode_hc_pallas.py : _hc_kernel (driven by
 // _encode_hc_raw and encode_blocks_hc_pallas). The same function, not the
@@ -43,19 +44,40 @@
 //   head table in the row's space during the pre-pass. Every hop and
 //   every candidate read is a shared-memory access, 4 bytes as two
 //   aligned words and a funnel shift.
-// - 32 parses of a block at once. The machine's sequences after a
-//   state-0 turn depend on that turn's position alone. So the searchable
-//   positions are cut into 128 parts, which the 32 warps take in turn
-//   (that evens out their time). A part is parsed speculatively from
-//   state 0 at its first position up to its first state-0 turn at or past
-//   the next part, marking each position it searched from in state 0 and
-//   listing its sequences (device scratch of the launch). Then the join
-//   after each part is repaired: the true machine runs from where the
-//   part's parse stopped up to the first position another part marked,
-//   whose parse the true one then follows. The stream is part 0's list,
-//   then each repair's and the suffix of the parse it joined, in turn; a
-//   repair whose list fills sends the block to one serial parse. Nearly
-//   every join closes at once.
+// - 32 parses of a block at once, 64 on two SMs. The machine's sequences
+//   after a state-0 turn depend on that turn's position alone. So the
+//   searchable positions are cut into 128 parts a CTA, which the warps
+//   take in turn (that evens out their time). A part is parsed
+//   speculatively from state 0 at its first position up to its first
+//   state-0 turn at or past the next part, marking each position it
+//   searched from in state 0 and listing its sequences (device scratch of
+//   the launch). Then the join after each part is repaired: the true
+//   machine runs from where the part's parse stopped up to the first
+//   position another part marked, whose parse the true one then follows.
+//   The stream is part 0's list, then each repair's and the suffix of the
+//   parse it joined, in turn; a repair whose list fills sends the block to
+//   one serial parse. Nearly every join closes at once.
+// - The width, from the call and the card, with no knob: the launcher
+//   asks once a device how many 2-CTA clusters of this kernel the card
+//   holds at once (cudaOccupancyMaxActiveClusters; 66 on an H100 SXM). A
+//   call of B blocks up to that many runs at width 2: 2B CTAs in clusters
+//   of two, a block a cluster, 256 parts a block. Larger calls run at
+//   width 1: min(B, SMs) CTAs, each looping over blocks. The kernel reads
+//   its width from its cluster; the parse is the same at both.
+// - A pair's phases. Each CTA runs the pre-pass and the row copy into its
+//   own shared memory, so no chain hop or candidate read leaves the SM
+//   (distributed shared memory is slow for scattered reads). A cluster
+//   barrier; the 64 warps take the speculative parts from one counter in
+//   rank 0's shared memory, each CTA marking in its own marks; `ends` goes
+//   to both CTAs, the lists' lengths to rank 0. A cluster barrier; each
+//   CTA ORs the peer's 8 KB of marks into its own in one sweep. The
+//   repairs, from a second counter of rank 0's. A cluster barrier; rank 0
+//   runs the serial parse where a repair's list filled, else stitches. The
+//   64 warps size the pieces (rank 1 reading rank 0's table), warp 0 of
+//   rank 0 turns the sizes into offsets, and the 64 warps write them; a
+//   cluster barrier between each. Only the part boundaries and the joins
+//   differ from width 1, and the joins follow the reference's parse, so
+//   the bytes are the same at either width.
 // - Within a parse the warp runs the machine in lockstep and shares the
 //   wide work: the back count (32 bytes a step) and the forward count
 //   (128 bytes a step) together, a ballot finding each first mismatch;
@@ -66,7 +88,9 @@
 //   against the running best, as the serial loop scores them.
 // - The write-out: the pieces' sizes, their offsets, then each warp
 //   writes its pieces; literals and length bytes lane-strided. Nothing is
-//   written past the output row.
+//   written past the output row. The stitch walks shared memory alone:
+//   the warp that lists a part's sequences also notes its last match's
+//   end and, after a repair, where the joined list reaches the join.
 //
 // How it keeps byte parity: the delta table equals the serial inserts'
 // table at every search (tests/test_torch_encode_hc_lockstep.py checks
@@ -77,8 +101,12 @@
 // depends on the scoring, goes one candidate a step as the reference
 // does.
 
+#include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -93,13 +121,15 @@ constexpr int kLastLiterals = 5;
 constexpr int kMfLimit = 12;
 constexpr int kOptimalMl = 18;
 constexpr int kWarps = 32;   // warps of a CTA (one hash class each)
-constexpr int kParts = 128;  // speculative parses of a block
-constexpr int kMaxPieces = 2 * kParts + 1;  // of the stitched stream
+constexpr int kParts = 128;  // speculative parses of a CTA of a block
+constexpr int kMaxWidth = 2;  // CTAs of a block (the launch's cluster)
+constexpr int kMaxParts = kParts * kMaxWidth;
+constexpr int kMaxPieces = 2 * kMaxParts + 1;  // of the stitched stream
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowPad = 64;  // zero bytes after the row (reads reach < 8)
 constexpr int kRowBytes = kChain + kRowPad;
 constexpr int kMarkWords = kChain / 32;  // a bit per position
-constexpr int kCounts = 12;  // LZ4T_B5_COUNT's counts per block
+constexpr int kCounts = 16;  // LZ4T_B5_COUNT's counts per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNoSlot = 1u << kHashLog;  // a key no hash equals
 
@@ -114,7 +144,9 @@ static_assert(kHeads * 2 <= kRowBytes, "the head table lives in the row");
 // warps), their searches and full scores, and of the whole block; whether
 // it fell back to the serial parse; the repairs' sequences written out;
 // and the cycles of the write-out, to the buffer given to
-// lz4t_encode_hc_counts.
+// lz4t_encode_hc_counts; then the wall cycles of the speculative parses,
+// of the repairs and of the serial parse, and the block's width (the CTAs
+// that parsed it).
 #ifdef LZ4T_B5_NOEMIT
 constexpr bool kEmit = false;
 #else
@@ -666,7 +698,7 @@ enum Mode { kSpec, kRepair, kSerial };
 __device__ __forceinline__ int machine(Parser& ps, Sink& o, Mode mode, int ip,
                                        int hi, int mflimit, int seg,
                                        uint2* list, int cap, int* len,
-                                       int* sync, int* overflow,
+                                       int* sync, bool* overflow,
                                        uint32_t* marks, const int* ends) {
   const Row& r = ps.r;
   const int lane = ps.lane;
@@ -822,7 +854,7 @@ __device__ __forceinline__ int machine(Parser& ps, Sink& o, Mode mode, int ip,
     ip = last_ip;
     n_list = last_len;
   }
-  if (mode == kRepair && full && lane == 0) *overflow = 1;
+  *overflow = mode == kRepair && full;
   if (mode == kSerial) o.tail(r, anchor, ps.matchlimit + kLastLiterals);
   *len = n_list;
   return ip;
@@ -861,53 +893,69 @@ __device__ __forceinline__ int first_from(const uint2* list, int len, int pos,
   return len;
 }
 
-// Per-CTA shared state besides the tables.
-struct Meta {
-  int ends[kParts];      // where each speculative parse stopped
-  int spec_len[kParts];  // its list's length
-  int sync[kParts];      // the mark the repair after it closed on (-1: none)
-  int rep_len[kParts];   // that repair's list's length
-  int next[2];           // the next part to take, in phases 0 and 1
-  int overflow;         // a repair's list filled: parse serially
-  int npieces;          // the stream's pieces, in order:
+// Per-CTA shared state besides the tables. At width 2, rank 0's holds
+// the pair's counters, lists' lengths, joins and flags; `ends` is kept in
+// both CTAs.
+struct alignas(16) Meta {
+  int ends[kMaxParts];      // where each speculative parse stopped
+  int spec_len[kMaxParts];  // its list's length
+  int sync[kMaxParts];      // the mark the repair after it closed on (-1: none)
+  int rep_len[kMaxParts];   // that repair's list's length
+  // what the stitch reads of the lists, found by the warp that wrote them:
+  int spec_end[kMaxParts];  // the end of the speculative list's last match
+  int rep_end[kMaxParts];   // the same of the repair's list
+  int join[kMaxParts];      // the first entry of the joined list past sync
+  int next[2];              // the next part to take, in phases 0 and 1
+  int overflow;             // a repair's list filled: parse serially
+  int npieces;              // the stream's pieces
+  int tail_at;              // the final literal run's start
+  int total;                // the pieces' bytes
+  unsigned long long cnt[kCounts];  // LZ4T_B5_COUNT
+};
+
+// The stitched stream's pieces, in order (rank 0's at width 2).
+struct Pieces {
   int4 piece[kMaxPieces];  // (list offset, from, to, literal start)
   int poff[kMaxPieces];    // their sizes, then their output offsets
-  int tail_at;          // the final literal run's start
-  int total;            // the pieces' bytes
-  unsigned long long cnt[kCounts];  // LZ4T_B5_COUNT
+};
+
+// The pre-pass's scratch and the pieces are never live together.
+union Scratch {
+  PrepassScratch pre;
+  Pieces pc;
 };
 
 constexpr int kSmemBytes = kChain * 2 + kRowBytes + kMarkWords * 4 +
                            static_cast<int>(sizeof(Meta)) +
-                           static_cast<int>(sizeof(PrepassScratch));
+                           static_cast<int>(sizeof(Scratch));
 static_assert(kSmemBytes <= 232448, "over a CTA's shared memory");
+static_assert((kChain * 2 + kRowBytes + kMarkWords * 4) % 16 == 0 &&
+                  sizeof(Meta) % 16 == 0,
+              "Meta and Scratch start 16-byte aligned");
 
-// The stitch (warp 0): warp 0's list, then, in turn, the repair after
-// the parse the true one follows and the suffix of the parse that repair
-// joined, each piece with the start of its first sequence's literals.
-__device__ __forceinline__ void stitch(Meta& meta, const uint2* lists,
+// The stitch (warp 0 of rank 0, from shared memory alone): part 0's
+// list, then, in turn, the repair after the parse the true one follows
+// and the suffix of the parse that repair joined, each piece with the
+// start of its first sequence's literals.
+__device__ __forceinline__ void stitch(Meta& meta, Pieces& pcs, int parts,
                                        int spec_cap, int rep_cap, int seg,
                                        int mflimit, int lane) {
   int np = 0;
   int prev = 0;
-  auto add = [&](int off, int from, int to) {
-    if (lane == 0) meta.piece[np] = make_int4(off, from, to, prev);
+  auto add = [&](int off, int from, int to, int end) {
+    if (lane == 0) pcs.piece[np] = make_int4(off, from, to, prev);
     ++np;
-    if (to > from) {
-      const uint32_t x = lists[off + to - 1].x;
-      prev = static_cast<int>((x & 0xFFFFu) + (x >> 16));
-    }
+    if (to > from) prev = end;
   };
-  add(0, 0, meta.spec_len[0]);
+  add(0, 0, meta.spec_len[0], meta.spec_end[0]);
   int v = 0;  // the parse the true one follows up to its end
   while (meta.ends[v] <= mflimit) {
-    add(kParts * spec_cap + v * rep_cap, 0, meta.rep_len[v]);
+    add(parts * spec_cap + v * rep_cap, 0, meta.rep_len[v], meta.rep_end[v]);
     const int at = meta.sync[v];
     if (at < 0) break;
-    v = at / seg;
-    const uint2* sl = lists + v * spec_cap;
-    add(v * spec_cap, first_from(sl, meta.spec_len[v], at, lane),
-        meta.spec_len[v]);
+    const int u = at / seg;
+    add(u * spec_cap, meta.join[v], meta.spec_len[u], meta.spec_end[u]);
+    v = u;
   }
   if (lane == 0) {
     meta.npieces = np;
@@ -915,11 +963,10 @@ __device__ __forceinline__ void stitch(Meta& meta, const uint2* lists,
   }
 }
 
-// Bytes of piece k's sequences as written out (the whole warp, 32
-// sequences a step), into meta.poff[k].
-__device__ __forceinline__ void piece_size(Meta& meta, const uint2* lists,
-                                           int k, int lane) {
-  const int4 pc = meta.piece[k];
+// Bytes of the piece pc's sequences as written out (the whole warp, 32
+// sequences a step).
+__device__ __forceinline__ int piece_size(const int4 pc, const uint2* lists,
+                                          int lane) {
   const uint2* list = lists + pc.x;
   int prev = pc.w;
   int sz = 0;
@@ -941,40 +988,85 @@ __device__ __forceinline__ void piece_size(Meta& meta, const uint2* lists,
     sz += s;
     prev = __shfl_sync(kFull, end, cnt - 1);
   }
-  if (lane == 0) meta.poff[k] = sz;
+  return sz;
 }
 
-// One CTA of kWarps warps per SM, looping over blocks. Per block: the
-// pre-pass and the row copy (the whole CTA), the speculative parses and
-// then the repairs (the warps take the parts in turn), the stitch (warp
-// 0), and the write-out (each warp its share of the pieces).
-__global__ void __launch_bounds__(kThreads)
-encode_hc_kernel(const uint8_t* __restrict__ src, const int* __restrict__ lens,
-                 uint8_t* __restrict__ out, int* __restrict__ csizes,
-                 int* __restrict__ trailing, uint2* __restrict__ lists,
-                 int B, int cap_n, int out_w, int depth, int favor,
-                 int spec_cap, int rep_cap,
-                 unsigned long long* __restrict__ counts) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The pieces' sizes into their output offsets, and the total (one warp).
+__device__ __forceinline__ void piece_offsets(Meta& meta, Pieces& pcs,
+                                              int lane) {
+  int at = 0;
+  for (int base = 0; base < meta.npieces; base += 32) {
+    const int k = base + lane;
+    const int sz = k < meta.npieces ? pcs.poff[k] : 0;
+    int run = sz;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, run, d);
+      if (lane >= d) run += v;
+    }
+    if (k < meta.npieces) pcs.poff[k] = at + run - sz;
+    at += __shfl_sync(kFull, run, 31);
+  }
+  if (lane == 0) meta.total = at;
+}
+
+// Every thread of the block's CTAs: the cluster's barrier at width 2
+// (release and acquire, so shared memory written before it, the peer's
+// too, is seen after it), else the CTA's.
+template <int W>
+__device__ __forceinline__ void sync_all(cg::cluster_group& cluster) {
+  if constexpr (W > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+}
+
+// x in the CTA of the given rank (x itself at width 1).
+template <int W, typename T>
+__device__ __forceinline__ T* at_rank(cg::cluster_group& cluster, T* x,
+                                      unsigned rank) {
+  if constexpr (W > 1)
+    return cluster.map_shared_rank(x, rank);
+  else
+    return x;
+}
+
+// The kernel's body at width W: each block on W CTAs (the launch's
+// cluster; one CTA of kWarps warps an SM), looping over blocks. Per block:
+// the pre-pass and the row copy (each CTA its own), the speculative parses
+// and then the repairs (the block's kParts x W parts, which the warps of
+// its CTAs take in turn from rank 0's counters), the stitch (warp 0 of
+// rank 0), and the write-out (each warp of the block its share of the
+// pieces).
+template <int W>
+__device__ __forceinline__ void encode_blocks(
+    const uint8_t* __restrict__ src, const int* __restrict__ lens,
+    uint8_t* __restrict__ out, int* __restrict__ csizes,
+    int* __restrict__ trailing, uint2* __restrict__ lists, int B, int cap_n,
+    int out_w, int depth, int favor, int spec_cap, int rep_cap,
+    unsigned long long* __restrict__ counts, unsigned char* smem) {
   uint16_t* chain = reinterpret_cast<uint16_t*>(smem);
   uint8_t* rowb = smem + kChain * sizeof(uint16_t);
   uint16_t* head = reinterpret_cast<uint16_t*>(rowb);  // pre-pass only
   uint32_t* marks = reinterpret_cast<uint32_t*>(rowb + kRowBytes);
   Meta& meta = *reinterpret_cast<Meta*>(marks + kMarkWords);
-  PrepassScratch& pre = *reinterpret_cast<PrepassScratch*>(&meta + 1);
+  Scratch& scr = *reinterpret_cast<Scratch*>(&meta + 1);
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = W > 1 ? cluster.block_rank() : 0u;
+  constexpr int parts = kParts * W;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  uint2* cta_lists = lists + static_cast<size_t>(blockIdx.x) * kParts *
+  uint2* blk_lists = lists + static_cast<size_t>(blockIdx.x / W) * parts *
                                  (spec_cap + rep_cap);
 
 #pragma unroll 1
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+  for (int b = blockIdx.x / W; b < B; b += gridDim.x / W) {
     const long long t0 = kCount ? clock64() : 0;
     const int n = min(max(lens[b], 0), cap_n);
     const int mflimit = n - kMfLimit;
     const int npos = max(mflimit + 1, 0);  // positions a search can reach
-    const int seg = max((npos + kParts - 1) / kParts, 1);
+    const int seg = max((npos + parts - 1) / parts, 1);
     const uint8_t* row = src + static_cast<size_t>(b) * cap_n;
 
     uint4* z = reinterpret_cast<uint4*>(head);
@@ -989,10 +1081,11 @@ encode_hc_kernel(const uint8_t* __restrict__ src, const int* __restrict__ lens,
     }
     if (kCount && threadIdx.x < kCounts) meta.cnt[threadIdx.x] = 0;
     __syncthreads();
-    prepass_cta(row, cap_n, npos, head, chain, pre, w, lane);
+    prepass_cta(row, cap_n, npos, head, chain, scr.pre, w, lane);
     const long long t1 = kCount ? clock64() : 0;
     load_row(row, cap_n, rowb);
-    __syncthreads();
+    // both CTAs' tables and counters are ready before either takes a part
+    sync_all<W>(cluster);
     if (!kParse) continue;
 
     Parser ps{Row{reinterpret_cast<const uint32_t*>(rowb), rowb},
@@ -1003,84 +1096,117 @@ encode_hc_kernel(const uint8_t* __restrict__ src, const int* __restrict__ lens,
               lane};
     Sink o{out + static_cast<size_t>(b) * out_w, 0, out_w, lane};
     const long long t2 = kCount ? clock64() : 0;
+    long long tph[3] = {t2, t2, t2};  // LZ4T_B5_COUNT: each phase's end
     // phase 0: the speculative parses; 1: the repairs, the true parse from
-    // each speculative parse's end (the warps take the parts in turn);
-    // 2: where a repair's list filled, the serial parse (warp 0). One call
-    // site, so the machine is inlined once.
+    // each speculative parse's end (the block's warps take the parts in
+    // turn); 2: where a repair's list filled, the serial parse (warp 0 of
+    // rank 0). One call site, so the machine is inlined once.
 #pragma unroll 1
     for (int phase = 0; phase < 3; ++phase) {
 #pragma unroll 1
       while (true) {
         int k = 0;
         if (phase < 2) {
-          if (lane == 0) k = atomicAdd(&meta.next[phase], 1);
+          if (lane == 0)
+            k = atomicAdd(&at_rank<W>(cluster, &meta, 0)->next[phase], 1);
           k = __shfl_sync(kFull, k, 0);
-          if (k >= kParts) break;
-        } else if (!(w == 0 && meta.overflow)) {
+          if (k >= parts) break;
+        } else if (!(rank == 0 && w == 0 && meta.overflow)) {
           break;
         }
         const Mode mode = phase == 0 ? kSpec : phase == 1 ? kRepair : kSerial;
         const int lo = min(k * seg, npos);
-        uint2* list = cta_lists + (phase == 0
+        uint2* list = blk_lists + (phase == 0
                                        ? static_cast<size_t>(k) * spec_cap
-                                       : static_cast<size_t>(kParts) * spec_cap +
+                                       : static_cast<size_t>(parts) * spec_cap +
                                              static_cast<size_t>(k) * rep_cap);
         int len, sync;
+        bool overflow;
         const int e = machine(
             ps, o, mode, phase == 0 ? lo : phase == 1 ? meta.ends[k] : 0,
             min(lo + seg, npos), mflimit, seg, list,
-            phase == 0 ? spec_cap : rep_cap, &len, &sync, &meta.overflow,
-            marks, meta.ends);
-        if (lane == 0 && phase == 0) {
-          meta.ends[k] = e;
-          meta.spec_len[k] = len;
-        } else if (lane == 0 && phase == 1) {
-          meta.sync[k] = sync;
-          meta.rep_len[k] = len;
+            phase == 0 ? spec_cap : rep_cap, &len, &sync, &overflow, marks,
+            meta.ends);
+        if (phase < 2) {
+          Meta* lead = at_rank<W>(cluster, &meta, 0);
+          // the end of the list's last match (the entry lane 0 wrote), and
+          // where the joined parse's list reaches sync
+          int last = -1;
+          if (lane == 0 && len > 0) {
+            const uint32_t x = list[len - 1].x;
+            last = static_cast<int>((x & 0xFFFFu) + (x >> 16));
+          }
+          if (phase == 1 && sync >= 0) {
+            const int u = sync / seg;
+            const int j = first_from(blk_lists + static_cast<size_t>(u) *
+                                                     spec_cap,
+                                     lead->spec_len[u], sync, lane);
+            if (lane == 0) lead->join[k] = j;
+          }
+          if (lane == 0 && phase == 0) {
+            meta.ends[k] = e;
+            if (W > 1) at_rank<W>(cluster, &meta, rank ^ 1u)->ends[k] = e;
+            lead->spec_len[k] = len;
+            lead->spec_end[k] = last;
+          } else if (lane == 0) {
+            lead->sync[k] = sync;
+            lead->rep_len[k] = len;
+            lead->rep_end[k] = last;
+            if (overflow) lead->overflow = 1;
+          }
         }
         if (phase == 2) break;
       }
       if (kCount && phase == 1) {
         ps.cnt[5] = clock64() - t2;
+        Meta* lead = at_rank<W>(cluster, &meta, 0);
         for (int k = 0; k < kCounts; ++k)
-          if (lane == 0 && ps.cnt[k]) atomicAdd(&meta.cnt[k], ps.cnt[k]);
+          if (lane == 0 && ps.cnt[k]) atomicAdd(&lead->cnt[k], ps.cnt[k]);
       }
-      __syncthreads();
+      if (phase < 2) sync_all<W>(cluster);
+      if (W > 1 && phase == 0) {
+        // the marks of the parts the peer took, ORed in (bits only rise)
+        uint4* mine = reinterpret_cast<uint4*>(marks);
+        const uint4* theirs = at_rank<W>(cluster, mine, rank ^ 1u);
+        for (int i = threadIdx.x; i < kMarkWords / 4; i += blockDim.x) {
+          const uint4 a = mine[i], c = theirs[i];
+          mine[i] = make_uint4(a.x | c.x, a.y | c.y, a.z | c.z, a.w | c.w);
+        }
+        __syncthreads();
+      }
+      if (kCount) tph[phase] = clock64();
     }
     // the write-out (the serial parse has written its stream already):
-    // warp 0 stitches the pieces; each warp sizes, then writes, its pieces
+    // warp 0 of rank 0 stitches the pieces; the block's warps size them,
+    // warp 0 of rank 0 turns the sizes into offsets, and the block's warps
+    // write them
     const long long t4 = kCount ? clock64() : 0;
-    const bool par = !meta.overflow;
-    if (par && w == 0) stitch(meta, cta_lists, spec_cap, rep_cap, seg,
-                              mflimit, lane);
-    __syncthreads();
-    if (par)
-      for (int k = w; k < meta.npieces; k += kWarps)
-        piece_size(meta, cta_lists, k, lane);
-    __syncthreads();
-    if (par && threadIdx.x == 0) {
-      int at = 0;
-      for (int k = 0; k < meta.npieces; ++k) {
-        const int sz = meta.poff[k];
-        meta.poff[k] = at;
-        at += sz;
-      }
-      meta.total = at;
+    const Meta* lead = at_rank<W>(cluster, &meta, 0);
+    Pieces* lead_pc = at_rank<W>(cluster, &scr.pc, 0);
+    const int gw = static_cast<int>(rank) * kWarps + w;  // warp of the block
+    const bool par = !lead->overflow;
+    if (par && rank == 0 && w == 0)
+      stitch(meta, scr.pc, parts, spec_cap, rep_cap, seg, mflimit, lane);
+    sync_all<W>(cluster);
+    const int npieces = par ? lead->npieces : 0;
+    for (int k = gw; k < npieces; k += kWarps * W) {
+      const int sz = piece_size(lead_pc->piece[k], blk_lists, lane);
+      if (lane == 0) lead_pc->poff[k] = sz;
     }
-    __syncthreads();
-    if (par) {
-      for (int k = w; k < meta.npieces; k += kWarps) {
-        const int4 pc = meta.piece[k];
-        int prev = pc.w;
-        o.op = meta.poff[k];
-        emit_list(o, ps.r, cta_lists + pc.x, pc.y, pc.z, &prev);
-      }
-      if (w == 0) {
-        o.op = meta.total;
-        o.tail(ps.r, meta.tail_at, n);
-      }
+    sync_all<W>(cluster);
+    if (par && rank == 0 && w == 0) piece_offsets(meta, scr.pc, lane);
+    sync_all<W>(cluster);
+    for (int k = gw; k < npieces; k += kWarps * W) {
+      const int4 pc = lead_pc->piece[k];
+      int prev = pc.w;
+      o.op = lead_pc->poff[k];
+      emit_list(o, ps.r, blk_lists + pc.x, pc.y, pc.z, &prev);
     }
-    if (threadIdx.x == 0) {
+    if (par && rank == 0 && w == 0) {
+      o.op = meta.total;
+      o.tail(ps.r, meta.tail_at, n);
+    }
+    if (rank == 0 && threadIdx.x == 0) {
       csizes[b] = o.op;
       trailing[b] = o.trail;
       if (kCount) {
@@ -1089,17 +1215,95 @@ encode_hc_kernel(const uint8_t* __restrict__ src, const int* __restrict__ lens,
         meta.cnt[9] = meta.overflow;
         meta.cnt[10] = 0;
         for (int k = 0; k < meta.npieces; ++k)
-          meta.cnt[10] += (k & 1) ? meta.piece[k].z - meta.piece[k].y : 0;
+          meta.cnt[10] += (k & 1) ? scr.pc.piece[k].z - scr.pc.piece[k].y : 0;
         meta.cnt[11] = clock64() - t4;
+        meta.cnt[12] = tph[0] - t2;
+        meta.cnt[13] = tph[1] - tph[0];
+        meta.cnt[14] = tph[2] - tph[1];
+        meta.cnt[15] = W;
         for (int k = 0; k < kCounts; ++k)
           counts[kCounts * b + k] = meta.cnt[k];
       }
     }
-    __syncthreads();
+    // no CTA reads the peer's shared memory past here, or clears its own
+    // for the next block, before both are done
+    sync_all<W>(cluster);
   }
 }
 
+// The launch's width is its cluster's: 2 CTAs a block in a cluster of
+// two, 1 otherwise. The body is compiled for each (the same parse, with
+// the width's constants folded in).
+__global__ void __launch_bounds__(kThreads)
+encode_hc_kernel(const uint8_t* __restrict__ src, const int* __restrict__ lens,
+                 uint8_t* __restrict__ out, int* __restrict__ csizes,
+                 int* __restrict__ trailing, uint2* __restrict__ lists,
+                 int B, int cap_n, int out_w, int depth, int favor,
+                 int spec_cap, int rep_cap,
+                 unsigned long long* __restrict__ counts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (cg::this_cluster().num_blocks() > 1)
+    encode_blocks<2>(src, lens, out, csizes, trailing, lists, B, cap_n, out_w,
+                     depth, favor, spec_cap, rep_cap, counts, smem);
+  else
+    encode_blocks<1>(src, lens, out, csizes, trailing, lists, B, cap_n, out_w,
+                     depth, favor, spec_cap, rep_cap, counts, smem);
+}
+
 unsigned long long* g_counts = nullptr;  // LZ4T_B5_COUNT's buffer
+
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_clusters[kMaxDevices];  // per device: clusters + 1
+
+// A launch of the kernel at width 2: B clusters of two CTAs.
+struct PairLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1]{};
+  PairLaunch(int B, cudaStream_t st) {
+    cfg.gridDim = dim3(2 * B);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmemBytes;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  PairLaunch(const PairLaunch&) = delete;
+};
+
+// The 2-CTA clusters of the kernel device dev holds at once, queried once
+// a device (cudaOccupancyMaxActiveClusters at kThreads and kSmemBytes).
+cudaError_t pair_clusters(int dev, int* n) {
+  if (dev >= 0 && dev < kMaxDevices) {
+    const int c = g_clusters[dev].load(std::memory_order_relaxed);
+    if (c > 0) {
+      *n = c - 1;
+      return cudaSuccess;
+    }
+  }
+  PairLaunch l(1, nullptr);
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(encode_hc_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmemBytes)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveClusters(n, encode_hc_kernel, &l.cfg)) !=
+          cudaSuccess)
+    return e;
+  if (dev >= 0 && dev < kMaxDevices)
+    g_clusters[dev].store(*n + 1, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+// The width of a launch of B blocks: 2 (a cluster of two CTAs a block)
+// where the device holds B such clusters at once, else 1.
+cudaError_t plan(int dev, int B, int* width, int* clusters) {
+  const cudaError_t e = pair_clusters(dev, clusters);
+  *width = e == cudaSuccess && B <= *clusters ? 2 : 1;
+  return e;
+}
 
 }  // namespace
 
@@ -1112,26 +1316,39 @@ extern "C" void lz4t_encode_hc_counts(void* counts) {
 // Bytes of dynamic shared memory each CTA of the kernel takes.
 extern "C" int lz4t_encode_hc_smem() { return kSmemBytes; }
 
+// The current device's 2-CTA clusters of the kernel (*clusters) and the
+// width a launch of B blocks runs at (*width); returns the cudaError_t.
+extern "C" int lz4t_encode_hc_plan(int B, int* width, int* clusters) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = plan(dev, B, width, clusters);
+  return static_cast<int>(e);
+}
+
 // HC-encode B blocks at chain depth `depth`; returns the launch's
-// cudaError_t (0 on success). The sequence lists are the launch's
-// scratch, stream-ordered (the default pool keeps the memory for the next
-// launch).
+// cudaError_t (0 on success). Width 2 (B <= the device's 2-CTA clusters):
+// 2B CTAs in clusters of two, one block a cluster; width 1: min(B, SMs)
+// CTAs, each looping over blocks. The sequence lists are the launch's
+// scratch, one region a cluster (CTA at width 1), stream-ordered (the
+// default pool keeps the memory for the next launch).
 extern "C" int lz4t_encode_hc(const void* src, const void* lens, void* out,
                               void* csizes, void* trailing, int B, int cap_n,
                               int out_w, int depth, int favor, void* stream) {
   if (B <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, width = 1, clusters = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess ||
       (e = cudaFuncSetAttribute(encode_hc_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kSmemBytes)) != cudaSuccess)
+                                kSmemBytes)) != cudaSuccess ||
+      (e = plan(dev, B, &width, &clusters)) != cudaSuccess)
     return static_cast<int>(e);
-  const int grid = max(1, min(B, sms));
-  const int spec_cap = (cap_n + 4 * kParts - 1) / (4 * kParts) + 128;
+  const int groups = width > 1 ? B : max(1, min(B, sms));
+  const int parts = kParts * width;
+  const int spec_cap = (cap_n + 4 * parts - 1) / (4 * parts) + 128;
   const int rep_cap = 256;
   cudaMemPool_t pool;
   uint64_t keep = UINT64_MAX;
@@ -1140,15 +1357,28 @@ extern "C" int lz4t_encode_hc(const void* src, const void* lens, void* out,
       (e = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold,
                                    &keep)) != cudaSuccess ||
       (e = cudaMallocAsync(&lists,
-                           sizeof(uint2) * grid * kParts * (spec_cap + rep_cap),
+                           sizeof(uint2) * groups * parts *
+                               (spec_cap + rep_cap),
                            st)) != cudaSuccess)
     return static_cast<int>(e);
-  encode_hc_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const uint8_t*>(src), static_cast<const int*>(lens),
-      static_cast<uint8_t*>(out), static_cast<int*>(csizes),
-      static_cast<int*>(trailing), static_cast<uint2*>(lists), B, cap_n,
-      out_w, depth, favor, spec_cap, rep_cap, g_counts);
-  e = cudaGetLastError();
+  const auto* s8 = static_cast<const uint8_t*>(src);
+  const auto* ln = static_cast<const int*>(lens);
+  auto* o8 = static_cast<uint8_t*>(out);
+  auto* cs = static_cast<int*>(csizes);
+  auto* tr = static_cast<int*>(trailing);
+  auto* ls = static_cast<uint2*>(lists);
+  if (width > 1) {
+    PairLaunch l(B, st);
+    e = cudaLaunchKernelEx(&l.cfg, encode_hc_kernel, s8, ln, o8, cs, tr, ls,
+                           B, cap_n, out_w, depth, favor, spec_cap, rep_cap,
+                           g_counts);
+  } else {
+    encode_hc_kernel<<<groups, kThreads, kSmemBytes, st>>>(
+        s8, ln, o8, cs, tr, ls, B, cap_n, out_w, depth, favor, spec_cap,
+        rep_cap, g_counts);
+  }
+  const cudaError_t last = cudaGetLastError();
+  if (e == cudaSuccess) e = last;
   const cudaError_t f = cudaFreeAsync(lists, st);
   return static_cast<int>(e != cudaSuccess ? e : f);
 }

@@ -321,19 +321,164 @@ def _hc_both(cuda, src, lens, **kw):
     return [go[i, :n].numpy().tobytes() for i, n in enumerate(gc.tolist())]
 
 
+def _hc_c(row, level, favor):
+    """The host C encoder's stream for B5's settings."""
+    if favor:
+        return blockcodec.compress_lazy(row, encode_hc.depth_for(level),
+                                        favor_dec_speed=True)
+    return blockcodec.compress_hc(row, level)
+
+
+def _hc_wide(cuda, src, lens, **kw):
+    """B5 on the card at width 1: the batch repeated past the card's
+    2-CTA clusters (one launch, not a cluster launch); returns the first
+    copy's streams, every copy's equal to them."""
+    B = len(lens)
+    with torch.cuda.device(cuda):
+        _, clusters = encode_hc.plan(B)
+    reps = clusters // B + 1
+    n0, c0 = encode_hc.launches, encode_hc.cluster_launches
+    go, gc, _ = (x.cpu() for x in encode_hc.encode_blocks_hc(
+        torch.from_numpy(np.tile(src, (reps, 1))).to(cuda),
+        torch.from_numpy(np.tile(lens, reps)).to(cuda), **kw))
+    assert (encode_hc.launches, encode_hc.cluster_launches) == (n0 + 1, c0)
+    got = [go[i, :n].numpy().tobytes() for i, n in enumerate(gc.tolist())]
+    assert all(got[r * B: (r + 1) * B] == got[:B] for r in range(reps))
+    return got[:B]
+
+
 @pytest.mark.parametrize("favor", [False, True])
 def test_b5_full_rows_of_zeros_and_patterns(cuda, favor):
-    """64 KB rows at level 9: counts that run the whole row, and the
-    repeat-pattern analysis on periodic rows."""
+    """64 KB rows at levels 3 and 9: counts that run the whole row, and
+    the repeat-pattern analysis on periodic rows; at width 2 (a 2-CTA
+    cluster a block) and at width 1 (the batch repeated past the card's
+    clusters), equal to the plain version and the host C encoder."""
     rows = [bytes(65536), b"abab" * 16384, b"abcd" * 16384,
             (b"xyz" * 21846)[:65536],
             b"\x07" * 30000 + b"ab" * 10000 + bytes(15536)]
     src, lens, _, _ = pack_blocks(rows, cap=65536)
     for level in (3, 9):
+        c0 = encode_hc.cluster_launches
         out = _hc_both(cuda, src, lens, cap_n=65536, level=level,
                        favor_dec_speed=favor)
+        assert encode_hc.cluster_launches == c0 + 1
+        assert _hc_wide(cuda, src, lens, cap_n=65536, level=level,
+                        favor_dec_speed=favor) == out
         for row, s in zip(rows, out):
             assert blockcodec.decompress(s, len(row)) == row
+            assert s == _hc_c(row, level, favor)
+
+
+def _runs_row():
+    """Runs of 5-304 equal bytes over 7 values, then a run of q: at 128
+    and at 256 parts a repair's list fills at level 9, so the block falls
+    back to the serial parse (the lockstep model says so)."""
+    row = b"".join(bytes([i % 7]) * (i % 300 + 5) for i in range(400))
+    return row[:65536].ljust(65536, b"q")
+
+
+def test_b5_serial_fallback_at_both_widths(cuda):
+    """A block whose repair list fills falls back to the serial parse in
+    rank 0 at width 2 (the counting build counts the fallback, at width
+    2), and at width 1; the streams equal the host C encoder's."""
+    from lz4_tpu_torch.probes import b5_split
+    rows = [_runs_row(), gen_text(65536, seed=8)]
+    src, lens, _, _ = pack_blocks(rows, cap=65536)
+    counts = b5_split._block_counts(torch.from_numpy(src).to(cuda),
+                                    torch.from_numpy(lens).to(cuda), 9)
+    keys = b5_split.COUNT_KEYS
+    assert counts[0, keys.index("fallbacks")] == 1
+    assert counts[:, keys.index("width")].tolist() == [2, 2]
+    for level, favor in ((9, False), (3, False), (9, True)):
+        c0 = encode_hc.cluster_launches
+        go, gc, _ = (x.cpu() for x in encode_hc.encode_blocks_hc(
+            torch.from_numpy(src).to(cuda), torch.from_numpy(lens).to(cuda),
+            cap_n=65536, level=level, favor_dec_speed=favor))
+        assert encode_hc.cluster_launches == c0 + 1
+        got = [go[i, :n].numpy().tobytes() for i, n in enumerate(gc.tolist())]
+        for row, s in zip(rows, got):
+            assert s == _hc_c(row, level, favor), (level, favor)
+        assert _hc_wide(cuda, src, lens, cap_n=65536, level=level,
+                        favor_dec_speed=favor) == got
+
+
+#: batch sizes up to 66 (an H100 SXM's 2-CTA clusters) at
+#: width 2, the neighbours past it at width 1
+B5_WIDTH_BATCHES = [1, 2, 64, 66, 67, 132, 300]
+
+
+def _b5_width_blocks(B, cap, seed):
+    """B blocks: rows of zeros and short periods (the pattern path), then
+    random blocks of every kind."""
+    rng = np.random.default_rng(seed)
+    pats = [bytes(cap), (b"ab" * cap)[:cap], (b"abc" * cap)[:cap],
+            b"\x07" * (cap // 2) + (b"xy" * cap)[: cap - cap // 2],
+            ((b"ab" * 20 + b"Q") * cap)[:cap]]
+    return (pats + _random_blocks(rng, B, cap))[:B]
+
+
+@pytest.mark.parametrize("B", B5_WIDTH_BATCHES)
+def test_b5_widths_match_plain_and_c(cuda, B):
+    """A call of B blocks runs at width 2 where the card holds B 2-CTA
+    clusters of the kernel, else at width 1; at either width B5's csizes,
+    trailing and streams equal the plain version's and the host C
+    encoder's, at levels 3 and 9 and with favor_dec_speed, and
+    `cluster_launches` counts the width-2 launches alone."""
+    cap = 4096
+    with torch.cuda.device(cuda):
+        width, clusters = encode_hc.plan(B)
+    assert width == (2 if B <= clusters else 1)
+    if clusters == 66:                    # an H100 SXM
+        assert width == (2 if B <= 66 else 1)
+    blocks = _b5_width_blocks(B, cap, seed=B)
+    src, lens, _, _ = pack_blocks(blocks, cap=cap)
+    for level, favor in ((3, False), (9, False), (9, True)):
+        n0, c0 = encode_hc.launches, encode_hc.cluster_launches
+        out = _hc_both(cuda, src, lens, cap_n=cap, level=level,
+                       favor_dec_speed=favor)
+        assert encode_hc.launches == n0 + 1
+        assert encode_hc.cluster_launches == c0 + (width == 2)
+        for row, s in zip(blocks, out):
+            assert s == _hc_c(row, level, favor), (level, favor)
+
+
+def test_b5_cell_batch_at_both_widths(cuda):
+    """A whole 64-block batch of the lz4hc9-64k.compress cell's corpus
+    (benchmark/corpora/silesia-like.json, the cell's batch order) at
+    levels 9 and 3: width 2 equal to the host C encoder block for block,
+    and to width 1 (the batch with three more blocks); the plain version
+    on two rows (csizes, trailing and bytes)."""
+    from benchmark import corpus
+    spec = corpus.load_spec("silesia-like")
+    data, _ = corpus.make_corpus(spec, 2718281828, spec["stratum_blocks"],
+                                 65536, cuda)
+    host = data[:67].cpu().numpy()
+    lens = np.full(67, 65536, np.int32)
+    for level in (9, 3):
+        c0 = encode_hc.cluster_launches
+        go, gc, gt = (x.cpu() for x in encode_hc.encode_blocks_hc(
+            data[:64], torch.from_numpy(lens[:64]).to(cuda), cap_n=65536,
+            level=level))
+        assert encode_hc.cluster_launches == c0 + 1
+        wide = [go[i, :n].numpy().tobytes() for i, n in enumerate(gc.tolist())]
+        for i in range(64):
+            assert wide[i] == blockcodec.compress_hc(host[i].tobytes(),
+                                                     level), (level, i)
+        assert _hc_wide(cuda, host[:64], lens[:64], cap_n=65536,
+                        level=level)[:64] == wide
+        w1, _, _ = (x.cpu() for x in encode_hc.encode_blocks_hc(
+            data[:67], torch.from_numpy(lens).to(cuda), cap_n=65536,
+            level=level))
+        assert encode_hc.cluster_launches == c0 + 1
+        assert [w1[i, :n].numpy().tobytes()
+                for i, n in enumerate(gc.tolist())] == wide
+        rows = [0, 63]
+        po, pc, pt = encode_hc.encode_blocks_hc_plain(
+            torch.from_numpy(host[rows]), torch.from_numpy(lens[rows]),
+            cap_n=65536, level=level)
+        assert torch.equal(pc, gc[rows]) and torch.equal(pt, gt[rows])
+        for j, i in enumerate(rows):
+            assert po[j, : pc[j]].numpy().tobytes() == wide[i]
 
 
 @pytest.mark.parametrize("cap", [65536, 65533, 4099])
@@ -434,12 +579,13 @@ def test_backend_hc_route_on_card(cuda):
     data = gen_text(300000, seed=15) + gen_buffer(200000, 0.7, seed=16)
     blocks = [data[i: i + 65536] for i in range(0, len(data), 65536)]
     gpu = TorchBackend(cuda)
-    n = encode_hc.launches
+    n, c = encode_hc.launches, encode_hc.cluster_launches
     for level in (3, 9):
         ours = gpu.compress_batch(blocks, level=level)
         assert ours == HostBackend().compress_batch(blocks, level=level)
         assert gpu.decompress_batch(ours, [65536] * len(blocks)) == blocks
     assert encode_hc.launches == n + 2 and gpu.hc_encoded == 2
+    assert encode_hc.cluster_launches == c + 2    # 8 blocks: width 2
 
 
 def _b4_case_blocks(seed):

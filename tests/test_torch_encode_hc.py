@@ -111,3 +111,19 @@ def test_depth_ladder_and_contract():
         torch.zeros((0, 64), dtype=torch.uint8),
         torch.zeros(0, dtype=torch.int32), cap_n=64)
     assert out.shape == (0, 80) and cs.shape == (0,)
+
+
+def test_cpu_calls_launch_nothing_and_caps_follow_the_parts():
+    """CPU tensors run the plain version: neither B5 counter moves. The
+    model's list capacities at 128 and 256 parts are the C launcher's
+    (a quarter of a part's positions plus 128; 256 a repair)."""
+    n, c = encode_hc.launches, encode_hc.cluster_launches
+    row = gen_text(3000, seed=4)
+    src = torch.frombuffer(bytearray(row), dtype=torch.uint8)[None, :]
+    out, cs, _ = encode_hc.encode_blocks_hc(
+        src, torch.tensor([3000], dtype=torch.int32), cap_n=3000)
+    assert out[0, : cs[0]].numpy().tobytes() == blockcodec.compress_hc(row, 9)
+    assert (encode_hc.launches, encode_hc.cluster_launches) == (n, c)
+    assert encode_hc.segment_caps(65536) == (256, 256)
+    assert encode_hc.segment_caps(65536, encode_hc.PAIR_SEGMENTS) == (192, 256)
+    assert encode_hc.PAIR_SEGMENTS == 2 * encode_hc.SEGMENTS

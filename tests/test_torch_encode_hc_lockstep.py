@@ -13,8 +13,10 @@ version's (`encode_blocks_hc_plain`), the JAX kernel's in interpret mode
 (caps <= 4096) and the host C `compress_hc`'s, at levels 3, 5 and 9 and
 with `favor_dec_speed`, on rows that share hash slots, zeros, periodic
 rows (the repeat-pattern path), random rows and rows under 13 bytes, with
-1, 4 and 32 segments and with lists small enough to fill. Tolerance:
-exact (LZ4 streams are deterministic bytes).
+1, 4, 32 and 256 segments and with lists small enough to fill; and with
+the parts taken in turns from two halves, each half marking in its own
+marks, as a 2-CTA cluster takes them. Tolerance: exact (LZ4 streams are
+deterministic bytes).
 """
 import numpy as np
 import pytest
@@ -120,11 +122,13 @@ def test_model_matches_the_jax_kernel(level, favor):
 
 
 @pytest.mark.parametrize("segments,caps", [(4, None), (32, (6, 1000)),
-                                           (32, (20, 2)), (7, (3, 3))])
+                                           (32, (20, 2)), (7, (3, 3)),
+                                           (256, None), (256, (6, 1000)),
+                                           (256, (20, 2))])
 def test_segments_and_full_lists(segments, caps):
-    """Joins at every segment count; speculative lists that fill fall back
-    to their last state-0 turn, repair lists that fill to one serial
-    parse."""
+    """Joins at every segment count (256: a 2-CTA cluster's parts);
+    speculative lists that fill fall back to their last state-0 turn,
+    repair lists that fill to one serial parse."""
     rows = _rows(4000, seed=11) + [gen_text(13, seed=3), bytes(40)]
     model = encode_hc.HCLockstepModel(segments, caps)
     _model(rows, 4096, model, level=9)
@@ -152,3 +156,63 @@ def test_batched_walk_visits_what_the_serial_walk_visits(level):
                        model.bytes))
     assert counts[0] == counts[1]
     assert counts[0][2] >= counts[0][3] > 0
+
+
+@pytest.mark.parametrize("level,favor", [(9, False), (3, False), (9, True)])
+def test_pair_order_matches_plain_c_and_the_jax_kernel(level, favor):
+    """256 parts taken in turns from two halves, each half's marks in its
+    own CTA's marks, ORed before the repairs (a 2-CTA cluster): the same
+    streams and joins as the parts taken in order, equal to the plain
+    version, C and the JAX kernel."""
+    rows = _rows(1500, seed=21)
+    cap = 1536
+    pair = encode_hc.HCLockstepModel(encode_hc.PAIR_SEGMENTS,
+                                     order=encode_hc.pair_order(), ctas=2)
+    got, pair = _model(rows, cap, pair, level=level, favor_dec_speed=favor)
+    ordered = encode_hc.HCLockstepModel(encode_hc.PAIR_SEGMENTS)
+    again, ordered = _model(rows, cap, ordered, level=level,
+                            favor_dec_speed=favor)
+    assert got == again
+    assert (pair.syncs, pair.repaired, pair.fallbacks) == (
+        ordered.syncs, ordered.repaired, ordered.fallbacks)
+    assert pair.syncs > 0 and pair.fallbacks == 0
+    for row, s in zip(rows, got):
+        assert s == blockcodec.compress_lazy(row, encode_hc.depth_for(level),
+                                             favor_dec_speed=favor)
+        if not favor:
+            assert s == blockcodec.compress_hc(row, level)
+    src, lens, _, _ = pack_blocks(rows, cap=cap)
+    out, cs, _ = (np.asarray(x) for x in encode_blocks_hc_pallas(
+        jnp.asarray(src), jnp.asarray(lens), cap_n=cap, level=level,
+        interpret=True, favor_dec_speed=favor))
+    assert got == [out[i, : cs[i]].tobytes() for i in range(len(rows))]
+
+
+def test_pair_order_with_full_lists():
+    """A pair's order at 256 parts with lists small enough to fill: the
+    speculative parses roll back and a repair's list overflows into the
+    serial parse, with the same bytes as the plain version, C and the JAX
+    kernel."""
+    rows = _rows(1500, seed=12)[:5] + [bytes(1500), b"ab" * 750]
+    cap = 1536
+    src, lens, _, _ = pack_blocks(rows, cap=cap)
+    out, cs, _ = (np.asarray(x) for x in encode_blocks_hc_pallas(
+        jnp.asarray(src), jnp.asarray(lens), cap_n=cap, level=9,
+        interpret=True))
+    want = [out[i, : cs[i]].tobytes() for i in range(len(rows))]
+    assert want == [blockcodec.compress_hc(r, 9) for r in rows]
+    for caps, fell in (((6, 1000), False), ((20, 2), True)):
+        model = encode_hc.HCLockstepModel(
+            encode_hc.PAIR_SEGMENTS, caps, order=encode_hc.pair_order(),
+            ctas=2)
+        got, model = _model(rows, cap, model, level=9)
+        assert got == want
+        assert (model.fallbacks > 0) == fell
+
+
+def test_pair_order_is_a_permutation():
+    assert encode_hc.pair_order(6) == [0, 3, 1, 4, 2, 5]
+    assert encode_hc.pair_order(5) == [0, 3, 1, 4, 2]
+    assert sorted(encode_hc.pair_order()) == list(range(256))
+    with pytest.raises(ValueError):
+        encode_hc.HCLockstepModel(4, order=[0, 1, 1, 2])
