@@ -19,6 +19,7 @@ from lz4_tpu_torch.spans import span
 
 #: dict/linked history window (the LZ4 format's 64 KB)
 DICT_CAP = 65536
+_NUMPY = {torch.uint8: np.uint8, torch.int32: np.int32}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,42 +49,69 @@ def bucket_cap(n: int) -> int:
 
 def pack_blocks(blocks: Sequence[bytes],
                 dict_prefixes: Sequence[bytes | None] | None = None, *,
-                cap: int, with_dict: bool = False):
+                cap: int, with_dict: bool = False, pinned: bool = False):
     """Pad `blocks` into the batch arrays (lz4_tpu engine.py:461-474).
 
     Returns numpy `(src uint8[B, cap], lens int32[B], dict_bufs,
     dict_lens)` for B = len(blocks). The dict arrays are None unless
     `with_dict`; then `dict_bufs uint8[B, 65536]` holds the last 64 KB of
     each prefix right-aligned and `dict_lens int32[B]` its length (0 where
-    the prefix is None or empty).
+    the prefix is None or empty). With `pinned` the four are page-locked
+    CPU tensors from torch's caching host allocator, holding the same
+    bytes, which `to_device_batch` copies to the GPU without a wait.
     """
     with span("lz4t.pack"):
         rows = len(blocks)
-        src = np.zeros((rows, cap), np.uint8)
-        lens = np.zeros(rows, np.int32)
-        for i, blk in enumerate(blocks):
-            if len(blk) > cap:
-                raise ValueError(
-                    f"block {i} holds {len(blk)} bytes > cap {cap}")
-            src[i, : len(blk)] = np.frombuffer(blk, np.uint8)
-            lens[i] = len(blk)
-        if not with_dict:
-            return src, lens, None, None
-        dict_bufs = np.zeros((rows, DICT_CAP), np.uint8)
-        dict_lens = np.zeros(rows, np.int32)
-        for i, d in enumerate(dict_prefixes or ()):
-            if d:
-                d = bytes(d)[-DICT_CAP:]
-                dict_bufs[i, DICT_CAP - len(d):] = np.frombuffer(
-                    d, np.uint8)
-                dict_lens[i] = len(d)
-        return src, lens, dict_bufs, dict_lens
+        shapes = [((rows, cap), torch.uint8), ((rows,), torch.int32)]
+        if with_dict:
+            shapes += [((rows, DICT_CAP), torch.uint8), ((rows,), torch.int32)]
+        if pinned:
+            arrays = [torch.empty(shape, dtype=dt, pin_memory=True)
+                      for shape, dt in shapes]
+            views = [a.numpy() for a in arrays]
+        else:
+            arrays = views = [np.empty(shape, _NUMPY[dt])
+                              for shape, dt in shapes]
+        pack_into(blocks, dict_prefixes, *views)
+        return tuple(arrays) if with_dict else (*arrays, None, None)
+
+
+def pack_into(blocks: Sequence[bytes],
+              dict_prefixes: Sequence[bytes | None] | None, src: np.ndarray,
+              lens: np.ndarray, dict_bufs: np.ndarray | None = None,
+              dict_lens: np.ndarray | None = None) -> None:
+    """Write the batch into arrays of `pack_blocks`' shapes whatever they
+    held before: every byte of every row is written, the pad past a
+    block (and before a right-aligned prefix) with zeros, so the rows
+    equal `pack_blocks`' byte for byte."""
+    cap = src.shape[1]
+    for i, blk in enumerate(blocks):
+        n = len(blk)
+        if n > cap:
+            raise ValueError(f"block {i} holds {n} bytes > cap {cap}")
+        src[i, :n] = np.frombuffer(blk, np.uint8)
+        src[i, n:] = 0
+        lens[i] = n
+    if dict_bufs is None:
+        return
+    dict_lens[:] = 0
+    prefixes = list(dict_prefixes or ())
+    for i in range(len(blocks)):
+        d = prefixes[i] if i < len(prefixes) else None
+        d = bytes(d)[-DICT_CAP:] if d else b""
+        dict_bufs[i, : DICT_CAP - len(d)] = 0
+        if d:
+            dict_bufs[i, DICT_CAP - len(d):] = np.frombuffer(d, np.uint8)
+            dict_lens[i] = len(d)
 
 
 def _tensor(a, dtype: torch.dtype, ndim: int, name: str,
             device: torch.device) -> torch.Tensor:
+    staged = False
     if isinstance(a, torch.Tensor):
-        if a.device != device:
+        staged = (a.device.type == "cpu" and device.type == "cuda"
+                  and a.is_pinned())
+        if a.device != device and not staged:
             raise ValueError(f"{name} is on {a.device}, not {device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -93,7 +121,7 @@ def _tensor(a, dtype: torch.dtype, ndim: int, name: str,
     if t.dtype != dtype or t.dim() != ndim:
         raise TypeError(f"{name}: expected a {ndim}-d {dtype} array, got "
                         f"{t.dim()}-d {t.dtype}")
-    return t.to(device)
+    return t.to(device, non_blocking=staged)
 
 
 def to_device_batch(src, lens, dict_bufs=None, dict_lens=None, *,
@@ -103,9 +131,11 @@ def to_device_batch(src, lens, dict_bufs=None, dict_lens=None, *,
     Takes what the JAX wrappers take: `src uint8[B, cap]`, `lens
     int32[B]`, and optionally `dict_bufs uint8[B, 65536]` (right-aligned
     history) with `dict_lens int32[B]`, as numpy arrays or as contiguous
-    tensors already on `device`. Returns the same four as tensors on the
-    device (the dict pair stays None when not given). Raises on a wrong
-    type, shape, device or layout.
+    tensors already on `device`; page-locked CPU tensors (`pack_blocks`
+    with `pinned`) go to a GPU on its current stream without a wait.
+    Returns the same four as tensors on the device (the dict pair stays
+    None when not given). Raises on a wrong type, shape, device or
+    layout.
     """
     with span("lz4t.h2d"):
         device = resolve_device(device)

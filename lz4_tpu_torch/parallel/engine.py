@@ -181,6 +181,14 @@ def _pad_rows(a, rows: int):
     return np.concatenate([a, pad])
 
 
+def _cut(out: torch.Tensor, csizes: torch.Tensor) -> list[bytes]:
+    """Each result row of `out` (on the host) cut to its stream, as bytes
+    that own their data."""
+    with span("lz4t.to_bytes"):
+        rows = out.numpy()
+        return [rows[i, :n].tobytes() for i, n in enumerate(csizes.tolist())]
+
+
 class ShardedCodec:
     """Batched block codec whose batch axis is split over the ranks of a
     process group (`ShardedCodec` of the JAX engine, whose batch axis is
@@ -337,7 +345,10 @@ class TorchBackend:
     host or to B2's piece waves. `wave_decoded`, `wave_encoded`,
     `hc_encoded` (B5), `device_hc_encoded` (level 2), `piece_decoded`
     and `sortscan_decoded` count the batches each route served;
-    `host_fallbacks` counts the batches a splitter rejected."""
+    `host_fallbacks` counts the batches a splitter rejected;
+    `pinned_calls` counts the encode calls whose host bytes (the packed
+    batch in, the results out) were staged in page-locked memory, which
+    every B1, B5 and level-2 call on a GPU is, outside a codec."""
 
     wave_decode = True
     wave_encode = True
@@ -364,12 +375,39 @@ class TorchBackend:
         self.piece_decoded = 0
         self.sortscan_decoded = 0
         self.host_fallbacks = 0
+        self.pinned_calls = 0
 
     def _host(self) -> HostBackend:
         """The host tier, made once (lz4_tpu engine.py:411-415)."""
         if self._host_be is None:
             self._host_be = HostBackend(nb_workers=self.nb_workers)
         return self._host_be
+
+    def _stage(self) -> bool:
+        """Whether this encode call stages its host bytes in page-locked
+        memory (on a GPU, not under a codec), counted in `pinned_calls`."""
+        staged = self.codec is None and self.device.type == "cuda"
+        self.pinned_calls += staged
+        return staged
+
+    def _fetch(self, *results, staged):
+        """A batch's result tensors on the host. Staged: non-blocking
+        copies into page-locked tensors (reused through torch's caching
+        host allocator) on the device's current stream, then one wait, on
+        an event recorded after them (on an H100 host the stream's own
+        synchronize left the host steps after it slower); else `.cpu()`
+        each."""
+        with span("lz4t.d2h"):
+            if not staged:
+                return [r.cpu() for r in results]
+            host = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                    for r in results]
+            for h, r in zip(host, results):
+                h.copy_(r, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+            return host
 
     def _run(self, fn, *arrays):
         """fn on the batch arrays: on each rank's shard under a codec,
@@ -383,8 +421,9 @@ class TorchBackend:
         """One padded batch on the fast-tier encoder (B1), or on the
         sort/scan encoder at level 2 or with `serial_encode` off; returns
         (list[bytes] streams, list[int] trailing literal runs)."""
+        staged = self._stage()
         arrays = pack_blocks(blocks, dict_prefixes, cap=cap_n,
-                             with_dict=has_dict)
+                             with_dict=has_dict, pinned=staged)
         if level == 2 or not self.serial_encode:
             fn = functools.partial(
                 encode_sortscan.encode_blocks, cap_n=cap_n,
@@ -395,14 +434,9 @@ class TorchBackend:
             fn = functools.partial(encode_blocks, cap_n=cap_n,
                                    acceleration=acceleration,
                                    max_dist=max_dist)
-        out, csizes, trailing = self._run(fn, *arrays)
-        with span("lz4t.d2h"):
-            out = out.cpu().numpy()
-            csizes = csizes.cpu().tolist()
-            trailing = trailing.cpu().tolist()
-        with span("lz4t.to_bytes"):
-            return ([out[i, : csizes[i]].tobytes()
-                     for i in range(len(blocks))], trailing)
+        out, csizes, trailing = self._fetch(*self._run(fn, *arrays),
+                                            staged=staged)
+        return _cut(out, csizes), trailing.tolist()
 
     def _compress_big_batch(self, blocks, dict_prefixes, *, acceleration,
                             max_dist, level=1):
@@ -474,16 +508,12 @@ class TorchBackend:
 
     def _compress_hc(self, blocks, *, level):
         """No-dict HC batch of blocks <= 64 KB: one B5 launch."""
-        src, lens, _, _ = pack_blocks(blocks, cap=SEG)
+        staged = self._stage()
+        src, lens, _, _ = pack_blocks(blocks, cap=SEG, pinned=staged)
         out, csizes, _ = encode_blocks_hc(
             *to_device_batch(src, lens, device=self.device)[:2], cap_n=SEG,
             level=level)
-        with span("lz4t.d2h"):
-            out = out.cpu().numpy()
-            csizes = csizes.cpu().tolist()
-        with span("lz4t.to_bytes"):
-            return [out[i, : csizes[i]].tobytes()
-                    for i in range(len(blocks))]
+        return _cut(*self._fetch(out, csizes, staged=staged))
 
     def _compress_maxd(self, blocks, *, level, acceleration, dict_prefixes,
                        favor_dec_speed, max_dist):

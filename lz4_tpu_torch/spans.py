@@ -14,13 +14,13 @@ The compress path's spans (`lz4t.` names):
 - `lz4t.compress_batch`: one `TorchBackend.compress_batch` call, its
   route choice included; the spans below sit inside it;
 - `lz4t.pack`: `block.batch.pack_blocks`, padding the blocks into the
-  batch arrays;
+  batch arrays (page-locked ones on a GPU);
 - `lz4t.h2d`: `block.batch.to_device_batch`, its checks and the moves
-  to the device;
+  to the device (enqueued without a wait from page-locked arrays);
 - `lz4t.launch`: B1's and B5's wrappers from the output allocation to
   the launch (the plain version on the CPU);
 - `lz4t.d2h`: the engine's copies of a batch's results to the host,
-  with the wait for the kernel;
+  with the call's one wait for the kernel and the copies;
 - `lz4t.to_bytes`: cutting each result row to its stream;
 - `lz4t.build`: a kernel build at first use (`_build.load`, `module`).
 """

@@ -643,6 +643,78 @@ def test_backend_level2_on_card(cuda):
     assert gpu.device_hc_encoded == 3
 
 
+def _staging_cases():
+    """(level, blocks, dict_prefixes) on the staged routes: B1 and level 2
+    on a plain batch, a dict batch and a batch with a block over 64 KB;
+    B5 on a plain batch (an HC dict batch or big block goes to the host
+    tier, which stages nothing)."""
+    data = gen_text(200000, seed=31) + gen_buffer(100000, 0.7, seed=32)
+    plain = [data[i: i + 20000] for i in range(0, 160000, 20000)]
+    dicts = [data[i + 7: i + 70007] for i in range(0, 160000, 20000)]
+    big = [data[:150000], data[150000:160000]]
+    return ([(lv, plain, None) for lv in (1, 2, 9)]
+            + [(lv, plain, dicts) for lv in (1, 2)]
+            + [(lv, big, None) for lv in (1, 2)])
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_staged_calls_match_cpu(cuda, case):
+    """The staged path's bytes equal `TorchBackend("cpu")`'s, one
+    `pinned_calls` a call."""
+    level, blocks, prefixes = _staging_cases()[case]
+    gpu = TorchBackend(cuda)
+    ours = gpu.compress_batch(blocks, level=level, dict_prefixes=prefixes)
+    assert ours == TorchBackend("cpu").compress_batch(
+        blocks, level=level, dict_prefixes=prefixes)
+    assert gpu.pinned_calls == 1
+    assert HostBackend().decompress_batch(
+        ours, [len(b) for b in blocks], dict_prefixes=prefixes) == blocks
+
+
+@pytest.mark.parametrize("level", [1, 2, 9])
+def test_staged_pad_is_clean_after_full_rows(cuda, level):
+    """Short blocks right after full random 64 KB blocks, on one backend:
+    the same bytes as the CPU's freshly zeroed arrays (a stale pad in
+    the reused page-locked rows would change them)."""
+    rng = np.random.default_rng(level)
+    full = [rng.bytes(65536) for _ in range(64)]
+    short = [gen_text(int(n), seed=int(n))
+             for n in rng.integers(4096, 9000, 64)]
+    kw = {} if level == 9 else {"dict_prefixes": [rng.bytes(65536)] * 64}
+    gpu, cpu = TorchBackend(cuda), TorchBackend("cpu")
+    for blocks in (full, short):
+        got = gpu.compress_batch(blocks, level=level, **kw)
+        if blocks is short:
+            assert got == cpu.compress_batch(blocks, level=level, **kw)
+        kw = {"dict_prefixes": [b"ab"] * 64} if kw else kw
+    assert gpu.pinned_calls == 2
+
+
+@pytest.mark.parametrize("level", [1, 9])
+def test_staged_steps_in_order_and_copies_pinned(cuda, level):
+    """On the card a call's steps come in order, one after another, and
+    every copy of the call runs from or to page-locked memory."""
+    blocks = [gen_text(65536, seed=s) for s in range(8)]
+    gpu = TorchBackend(cuda)
+    want = gpu.compress_batch(blocks, level=level)
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        got = gpu.compress_batch(blocks, level=level)
+    assert got == want and gpu.pinned_calls == 2
+    cpu_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU]
+    steps = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in cpu_events if e.name.startswith("lz4t.")
+                   and e.name != "lz4t.compress_batch")
+    assert [n for _, _, n in steps] == [
+        "lz4t.pack", "lz4t.h2d", "lz4t.h2d", "lz4t.launch", "lz4t.d2h",
+        "lz4t.to_bytes"]
+    for (_, e1, _), (s2, _, _) in zip(steps, steps[1:]):
+        assert e1 <= s2
+    copies = {e.name for e in prof.events() if e.name.startswith("Memcpy")}
+    assert copies and all("Pinned" in n for n in copies), copies
+
+
 @pytest.mark.parametrize("cap_out", [65536, 70000])
 def test_b2_main_and_wide_rows(cuda, cap_out):
     """B2 holds to the plain version on valid, overlapping, mutated, dict
