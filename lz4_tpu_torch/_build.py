@@ -8,7 +8,8 @@ or header is rebuilt, a stale one is never loaded, and a variant built
 with other defines never shares a library with the kernel itself. A
 build writes a temporary file and renames it into place, so concurrent
 processes never load a half-written library. A failed build raises:
-there is no fallback.
+there is no fallback. `launch` is the one way the wrappers of the
+product kernels (B1-B6) reach their entry points.
 
 The probe gathers' libraries (`probe_lane`, `probe_gather`) are also
 CPython extension modules (`csrc/pyentry.h`): `module(name)` imports one
@@ -28,6 +29,8 @@ import subprocess
 import sysconfig
 import threading
 import time
+
+import torch
 
 from lz4_tpu_torch.spans import span
 
@@ -186,6 +189,38 @@ def load(name: str, defines=()):
             fn.restype = ctypes.c_int
             _LIBS[(name, defines)] = lib
         return getattr(lib, KERNELS[name][0])
+
+
+def launch(name: str, tag: str, device, plain, outs, *args):
+    """One batch through product kernel `name` (`tag`, as "B1", names it
+    in errors) on `device`, inside the `lz4t.launch` span.
+
+    On the CPU this runs `plain()`, the kernel's plain version. On a GPU
+    it launches the kernel on the device's current stream with `args` in
+    its C entry point's order, a tensor passed as its `data_ptr()` and
+    None as NULL. `outs` is what the kernel writes, a tensor or a tuple
+    of them that the caller made on `device`; where no tensor of it holds
+    an element, nothing launches. Returns `(result, launched)`:
+    `plain()`'s result or `outs`, and 1 where the kernel launched, else
+    0. Raises ValueError on any other device, RuntimeError where the
+    launch returns a CUDA error.
+    """
+    with span("lz4t.launch"):
+        if device.type == "cpu":
+            return plain(), 0
+        if device.type != "cuda":
+            raise ValueError(f"no {tag} kernel for device {device}")
+        if not any(o.numel() for o in
+                   (outs if isinstance(outs, tuple) else (outs,))):
+            return outs, 0
+        fn = load(name)
+        with torch.cuda.device(device):
+            rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args),
+                    torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{tag} {name} launch failed: CUDA error {rc}")
+        return outs, 1
 
 
 def module(name: str):

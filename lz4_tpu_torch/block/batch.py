@@ -135,22 +135,40 @@ def to_device_batch(src, lens, dict_bufs=None, dict_lens=None, *,
     with `pinned`) go to a GPU on its current stream without a wait.
     Returns the same four as tensors on the device (the dict pair stays
     None when not given). Raises on a wrong type, shape, device or
-    layout.
+    layout. Only a batch that moves opens the `lz4t.h2d` span: one
+    already on `device` is checked and returned as it is.
     """
+    device = resolve_device(device)
+    arrays = (src, lens, dict_bufs, dict_lens)
+    if all(a is None or isinstance(a, torch.Tensor) and a.device == device
+           for a in arrays):
+        return _checked_batch(*arrays, device)
     with span("lz4t.h2d"):
-        device = resolve_device(device)
-        src_t = _tensor(src, torch.uint8, 2, "src", device)
-        lens_t = _tensor(lens, torch.int32, 1, "lens", device)
-        if lens_t.shape[0] != src_t.shape[0]:
-            raise ValueError("lens must hold one length per row of src")
-        if (dict_bufs is None) != (dict_lens is None):
-            raise ValueError("dict_bufs and dict_lens go together")
-        if dict_bufs is None:
-            return src_t, lens_t, None, None
-        db_t = _tensor(dict_bufs, torch.uint8, 2, "dict_bufs", device)
-        dl_t = _tensor(dict_lens, torch.int32, 1, "dict_lens", device)
-        if tuple(db_t.shape) != (src_t.shape[0], DICT_CAP) or \
-                dl_t.shape[0] != src_t.shape[0]:
-            raise ValueError("dict_bufs must be uint8[B, 65536] with "
-                             "dict_lens int32[B]")
-        return src_t, lens_t, db_t, dl_t
+        return _checked_batch(*arrays, device)
+
+
+def _checked_batch(src, lens, dict_bufs, dict_lens, device):
+    src_t = _tensor(src, torch.uint8, 2, "src", device)
+    lens_t = _tensor(lens, torch.int32, 1, "lens", device)
+    if lens_t.shape[0] != src_t.shape[0]:
+        raise ValueError("lens must hold one length per row of src")
+    if (dict_bufs is None) != (dict_lens is None):
+        raise ValueError("dict_bufs and dict_lens go together")
+    if dict_bufs is None:
+        return src_t, lens_t, None, None
+    db_t = _tensor(dict_bufs, torch.uint8, 2, "dict_bufs", device)
+    dl_t = _tensor(dict_lens, torch.int32, 1, "dict_lens", device)
+    if tuple(db_t.shape) != (src_t.shape[0], DICT_CAP) or \
+            dl_t.shape[0] != src_t.shape[0]:
+        raise ValueError("dict_bufs must be uint8[B, 65536] with "
+                         "dict_lens int32[B]")
+    return src_t, lens_t, db_t, dl_t
+
+
+def result_rows(rows: int, width: int, device) -> tuple:
+    """A batch kernel's outputs on `device`, not initialised: uint8[rows,
+    width] and two int32[rows] (B1's and B5's out, csizes, trailing; B2's
+    out, olen, err)."""
+    return (torch.empty((rows, width), dtype=torch.uint8, device=device),
+            torch.empty(rows, dtype=torch.int32, device=device),
+            torch.empty(rows, dtype=torch.int32, device=device))

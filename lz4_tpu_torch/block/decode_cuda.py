@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lz4_tpu_torch.block.batch import DICT_CAP, to_device_batch
+from lz4_tpu_torch import _build
+from lz4_tpu_torch.block.batch import DICT_CAP, result_rows, to_device_batch
 from lz4_tpu_torch.constants import MINMATCH
 
 #: kernel launches made by `decode_blocks` (and nowhere else)
@@ -37,34 +38,19 @@ def decode_blocks(comp, comp_lens, dict_bufs=None, dict_lens=None, *,
     device = comp.device if isinstance(comp, torch.Tensor) else None
     comp, comp_lens, dict_bufs, dict_lens = to_device_batch(
         comp, comp_lens, dict_bufs, dict_lens, device=device)
-    if comp.device.type == "cpu":
-        return decode_blocks_plain(comp, comp_lens, dict_bufs, dict_lens,
-                                   cap_out=cap_out, loose=loose)
-    if comp.device.type != "cuda":
-        raise ValueError(f"no B2 kernel for device {comp.device}")
     B, cap_in = comp.shape
-    if cap_out + DICT_CAP >= 1 << 31 or cap_in >= 1 << 30:
+    if comp.is_cuda and (cap_out + DICT_CAP >= 1 << 31 or cap_in >= 1 << 30):
         raise ValueError(f"B2 indexes in 32 bits: cap_out {cap_out} + 65536 "
                          f"must be < 2^31 and cap_in {cap_in} < 2^30")
-    out = torch.empty((B, cap_out), dtype=torch.uint8, device=comp.device)
-    olen = torch.empty(B, dtype=torch.int32, device=comp.device)
-    err = torch.empty(B, dtype=torch.int32, device=comp.device)
-    if B == 0:
-        return out, olen, err
-    from lz4_tpu_torch import _build
-    fn = _build.load("decode_serial")
-    has_dict = dict_bufs is not None
-    with torch.cuda.device(comp.device):
-        stream = torch.cuda.current_stream(comp.device).cuda_stream
-        rc = fn(comp.data_ptr(), comp_lens.data_ptr(),
-                dict_bufs.data_ptr() if has_dict else None,
-                dict_lens.data_ptr() if has_dict else None,
-                out.data_ptr(), olen.data_ptr(), err.data_ptr(),
-                B, cap_in, cap_out, int(has_dict), int(bool(loose)), stream)
-    if rc != 0:
-        raise RuntimeError(f"B2 decode_serial launch failed: CUDA error {rc}")
-    launches += 1
-    return out, olen, err
+    outs = result_rows(B, cap_out, comp.device)
+    res, n = _build.launch(
+        "decode_serial", "B2", comp.device,
+        lambda: decode_blocks_plain(comp, comp_lens, dict_bufs, dict_lens,
+                                    cap_out=cap_out, loose=loose),
+        outs, comp, comp_lens, dict_bufs, dict_lens, *outs, B, cap_in,
+        cap_out, int(dict_bufs is not None), int(bool(loose)))
+    launches += n
+    return res
 
 
 # --------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lz4_tpu_torch import _build
 from lz4_tpu_torch.block.batch import resolve_device
 
 WOUT = 1024            # decoded bytes per piece
@@ -57,26 +58,15 @@ def wave_decode(arenas: torch.Tensor, out_lens: torch.Tensor,
     plain version; CUDA tensors launch B3."""
     global launches
     _check(arenas, out_lens, hist)
-    if arenas.device.type == "cpu":
-        return wave_decode_plain(arenas, out_lens, hist)
-    if arenas.device.type != "cuda":
-        raise ValueError(f"no B3 kernel for device {arenas.device}")
     B, NP, _ = arenas.shape
     out = torch.empty((B, NP * WOUT), dtype=torch.uint8,
                       device=arenas.device)
-    if B == 0 or NP == 0:
-        return out
-    from lz4_tpu_torch import _build
-    fn = _build.load("decode_wave")
-    with torch.cuda.device(arenas.device):
-        stream = torch.cuda.current_stream(arenas.device).cuda_stream
-        rc = fn(arenas.data_ptr(), out_lens.data_ptr(),
-                None if hist is None else hist.data_ptr(), out.data_ptr(),
-                B, NP, stream)
-    if rc != 0:
-        raise RuntimeError(f"B3 decode_wave launch failed: CUDA error {rc}")
-    launches += 1
-    return out
+    res, n = _build.launch(
+        "decode_wave", "B3", arenas.device,
+        lambda: wave_decode_plain(arenas, out_lens, hist), out, arenas,
+        out_lens, hist, out, B, NP)
+    launches += n
+    return res
 
 
 # --------------------------------------------------------------------------

@@ -15,10 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from lz4_tpu_torch.block.batch import DICT_CAP, to_device_batch
+from lz4_tpu_torch import _build
+from lz4_tpu_torch.block.batch import DICT_CAP, result_rows, to_device_batch
 from lz4_tpu_torch.constants import (ACCELERATION_MAX, LASTLITERALS,
                                      MFLIMIT, MINMATCH, compress_bound)
-from lz4_tpu_torch.spans import span
 
 HASH_LOG = 16
 HASH_MUL = 2654435761          # Knuth multiplier
@@ -57,37 +57,18 @@ def encode_blocks(src, lens, dict_bufs=None, dict_lens=None, *, cap_n: int,
     if src.shape[1] != cap_n:
         raise ValueError(f"src must be uint8[B, {cap_n}], got "
                          f"{tuple(src.shape)}")
-    with span("lz4t.launch"):
-        if src.device.type == "cpu":
-            return encode_blocks_plain(src, lens, dict_bufs, dict_lens,
-                                       cap_n=cap_n, acceleration=accel,
-                                       dict_stride=dict_stride,
-                                       max_dist=max_dist)
-        if src.device.type != "cuda":
-            raise ValueError(f"no B1 kernel for device {src.device}")
-        B = src.shape[0]
-        bound = compress_bound(cap_n)
-        out = torch.empty((B, bound), dtype=torch.uint8, device=src.device)
-        csizes = torch.empty(B, dtype=torch.int32, device=src.device)
-        trailing = torch.empty(B, dtype=torch.int32, device=src.device)
-        if B == 0:
-            return out, csizes, trailing
-        from lz4_tpu_torch import _build
-        fn = _build.load("encode_serial")
-        has_dict = dict_bufs is not None
-        with torch.cuda.device(src.device):
-            stream = torch.cuda.current_stream(src.device).cuda_stream
-            rc = fn(src.data_ptr(), lens.data_ptr(),
-                    dict_bufs.data_ptr() if has_dict else None,
-                    dict_lens.data_ptr() if has_dict else None,
-                    out.data_ptr(), csizes.data_ptr(), trailing.data_ptr(),
-                    B, cap_n, bound, int(has_dict), accel, dict_stride,
-                    max_dist, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"B1 encode_serial launch failed: CUDA error {rc}")
-        launches += 1
-    return out, csizes, trailing
+    B, bound = src.shape[0], compress_bound(cap_n)
+    outs = result_rows(B, bound, src.device)
+    res, n = _build.launch(
+        "encode_serial", "B1", src.device,
+        lambda: encode_blocks_plain(src, lens, dict_bufs, dict_lens,
+                                    cap_n=cap_n, acceleration=accel,
+                                    dict_stride=dict_stride,
+                                    max_dist=max_dist),
+        outs, src, lens, dict_bufs, dict_lens, *outs, B, cap_n, bound,
+        int(dict_bufs is not None), accel, dict_stride, max_dist)
+    launches += n
+    return res
 
 
 # --------------------------------------------------------------------------

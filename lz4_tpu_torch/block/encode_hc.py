@@ -36,9 +36,9 @@ import ctypes
 
 import torch
 
-from lz4_tpu_torch.block.batch import to_device_batch
+from lz4_tpu_torch import _build
+from lz4_tpu_torch.block.batch import result_rows, to_device_batch
 from lz4_tpu_torch.constants import LASTLITERALS, MFLIMIT, compress_bound
-from lz4_tpu_torch.spans import span
 
 HASH_LOG = 15
 HASH_MUL = 2654435761          # Knuth multiplier
@@ -69,7 +69,6 @@ def plan(B: int) -> tuple[int, int]:
     where B is at most that, else 1 (the C launcher's rule)."""
     global _plan_fn
     if _plan_fn is None:
-        from lz4_tpu_torch import _build
         _build.load("encode_hc")
         fn = ctypes.CDLL(_build.library_path("encode_hc")).lz4t_encode_hc_plan
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -103,33 +102,19 @@ def encode_blocks_hc(src, lens, *, cap_n: int, level: int = 9,
     if src.shape[1] != cap_n:
         raise ValueError(f"src must be uint8[B, {cap_n}], got "
                          f"{tuple(src.shape)}")
-    with span("lz4t.launch"):
-        if src.device.type == "cpu":
-            return encode_blocks_hc_plain(src, lens, cap_n=cap_n, level=level,
-                                          favor_dec_speed=favor_dec_speed)
-        if src.device.type != "cuda":
-            raise ValueError(f"no B5 kernel for device {src.device}")
-        B = src.shape[0]
-        bound = compress_bound(cap_n)
-        out = torch.empty((B, bound), dtype=torch.uint8, device=src.device)
-        csizes = torch.empty(B, dtype=torch.int32, device=src.device)
-        trailing = torch.empty(B, dtype=torch.int32, device=src.device)
-        if B == 0:
-            return out, csizes, trailing
-        from lz4_tpu_torch import _build
-        fn = _build.load("encode_hc")
+    B, bound = src.shape[0], compress_bound(cap_n)
+    outs = result_rows(B, bound, src.device)
+    res, n = _build.launch(
+        "encode_hc", "B5", src.device,
+        lambda: encode_blocks_hc_plain(src, lens, cap_n=cap_n, level=level,
+                                       favor_dec_speed=favor_dec_speed),
+        outs, src, lens, *outs, B, cap_n, bound, depth_for(level),
+        int(bool(favor_dec_speed)))
+    launches += n
+    if n:
         with torch.cuda.device(src.device):
-            stream = torch.cuda.current_stream(src.device).cuda_stream
-            rc = fn(src.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                    csizes.data_ptr(), trailing.data_ptr(), B, cap_n, bound,
-                    depth_for(level), int(bool(favor_dec_speed)), stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"B5 encode_hc launch failed: CUDA error {rc}")
-            wide = plan(B)[0] == 2
-        launches += 1
-        cluster_launches += wide
-    return out, csizes, trailing
+            cluster_launches += plan(B)[0] == 2
+    return res
 
 
 # --------------------------------------------------------------------------

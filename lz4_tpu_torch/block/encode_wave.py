@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lz4_tpu_torch import _build
 from lz4_tpu_torch.block.batch import resolve_device
 
 HASH_BITS = 10             # log2 buckets per block (2 candidates each)
@@ -126,31 +127,19 @@ def find_matches(inp: torch.Tensor, lens: torch.Tensor,
     run the plain version; CUDA tensors launch B4."""
     global launches
     _check(inp, lens, hist, hlen, hash_bits)
-    if inp.device.type == "cpu":
-        return find_matches_plain(inp, lens, hist, hlen, max_dist=max_dist,
-                                  hash_bits=hash_bits)
-    if inp.device.type != "cuda":
-        raise ValueError(f"no B4 kernel for device {inp.device}")
-    B, row = inp.shape
-    n_rows = row // 4
-    dec = torch.zeros((B, n_rows), dtype=torch.int32, device=inp.device)
-    if B == 0 or n_rows == 0:
-        return dec
-    if inp.data_ptr() % 4:
+    if inp.is_cuda and inp.data_ptr() % 4:
         raise ValueError("inp must be 4-byte aligned")
-    from lz4_tpu_torch import _build
-    fn = _build.load("encode_wave")
-    wr = 0 if hist is None else hist.shape[1] // 4
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream(inp.device).cuda_stream
-        rc = fn(inp.data_ptr(), lens.data_ptr(),
-                None if hist is None else hist.data_ptr(),
-                None if hlen is None else hlen.data_ptr(), dec.data_ptr(),
-                B, n_rows, wr, int(max_dist), int(hash_bits), stream)
-    if rc != 0:
-        raise RuntimeError(f"B4 encode_wave launch failed: CUDA error {rc}")
-    launches += 1
-    return dec
+    B, n_rows = inp.shape[0], inp.shape[1] // 4
+    dec = torch.zeros((B, n_rows), dtype=torch.int32, device=inp.device)
+    res, n = _build.launch(
+        "encode_wave", "B4", inp.device,
+        lambda: find_matches_plain(inp, lens, hist, hlen, max_dist=max_dist,
+                                   hash_bits=hash_bits),
+        dec, inp, lens, hist, hlen, dec, B, n_rows,
+        0 if hist is None else hist.shape[1] // 4, int(max_dist),
+        int(hash_bits))
+    launches += n
+    return res
 
 
 # --------------------------------------------------------------------------

@@ -418,13 +418,17 @@ class TorchBackend:
 
     def _encode(self, blocks, dict_prefixes, *, cap_n, has_dict,
                 acceleration, max_dist, level=1):
-        """One padded batch on the fast-tier encoder (B1), or on the
-        sort/scan encoder at level 2 or with `serial_encode` off; returns
-        (list[bytes] streams, list[int] trailing literal runs)."""
+        """One padded batch on B5 at the HC levels, on the sort/scan
+        encoder at level 2 or with `serial_encode` off, else on the
+        fast-tier encoder (B1): pack, move, encode, bring home, cut.
+        Returns (list[bytes] streams, list[int] trailing literal runs)."""
         staged = self._stage()
         arrays = pack_blocks(blocks, dict_prefixes, cap=cap_n,
                              with_dict=has_dict, pinned=staged)
-        if level == 2 or not self.serial_encode:
+        if level in HC_DEVICE_LEVELS:
+            def fn(src, lens, *_):              # the HC route has no dict
+                return encode_blocks_hc(src, lens, cap_n=cap_n, level=level)
+        elif level == 2 or not self.serial_encode:
             fn = functools.partial(
                 encode_sortscan.encode_blocks, cap_n=cap_n,
                 has_dict=has_dict,
@@ -485,7 +489,9 @@ class TorchBackend:
                     and self.min_device_size <= mx <= SEG
                     and not favor_dec_speed):
                 self.hc_encoded += 1
-                return self._compress_hc(blocks, level=level)
+                return self._encode(blocks, None, cap_n=SEG, has_dict=False,
+                                    acceleration=acceleration,
+                                    max_dist=max_dist, level=level)[0]
             # level 2 runs on the sort/scan encoder whatever favor_dec_speed
             # is (lz4_tpu engine.py:641-678); the other HC cases and blocks
             # outside the size gate go to the host tier
@@ -505,15 +511,6 @@ class TorchBackend:
                                   has_dict=has_dict, acceleration=acceleration,
                                   max_dist=max_dist, level=level)
             return out
-
-    def _compress_hc(self, blocks, *, level):
-        """No-dict HC batch of blocks <= 64 KB: one B5 launch."""
-        staged = self._stage()
-        src, lens, _, _ = pack_blocks(blocks, cap=SEG, pinned=staged)
-        out, csizes, _ = encode_blocks_hc(
-            *to_device_batch(src, lens, device=self.device)[:2], cap_n=SEG,
-            level=level)
-        return _cut(*self._fetch(out, csizes, staged=staged))
 
     def _compress_maxd(self, blocks, *, level, acceleration, dict_prefixes,
                        favor_dec_speed, max_dist):
@@ -581,8 +578,9 @@ class TorchBackend:
         comp, plens_d, _, _ = to_device_batch(
             arenas.reshape(waves * B, PIECE_CAP), plens.reshape(-1),
             device=self.device)
-        outs, olens, errs = (t.cpu().numpy() for t in _decode_pieces(
-            comp, plens_d, hist, hlen, waves=waves))
+        outs, olens, errs = (t.numpy() for t in self._fetch(
+            *_decode_pieces(comp, plens_d, hist, hlen, waves=waves),
+            staged=False))
         res = []
         for i, (_, pl, po) in enumerate(splits):
             k = len(pl)
@@ -635,19 +633,14 @@ class TorchBackend:
             self.sortscan_decoded += 1
             fn = functools.partial(decode_sortscan.decode_blocks,
                                    cap_out=cap_out, has_dict=has_dict)
-        out, olens, errs = self._run(fn, *arrays)
-        errs = errs.cpu().tolist()
-        olens = olens.cpu().tolist()
-        out = out.cpu().numpy()
-        res = []
-        for i in range(len(blocks)):
-            if errs[i]:
+        out, olens, errs = self._fetch(*self._run(fn, *arrays), staged=False)
+        for i, (err, n) in enumerate(zip(errs.tolist(), olens.tolist())):
+            if err:
                 raise BlockDecodeError(f"malformed block {i}")
-            if olens[i] > max_outs[i]:
+            if n > max_outs[i]:
                 raise BlockDecodeError(
-                    f"block {i} decodes to {olens[i]} > cap {max_outs[i]}")
-            res.append(out[i, : olens[i]].tobytes())
-        return res
+                    f"block {i} decodes to {n} > cap {max_outs[i]}")
+        return _cut(out, olens)
 
 
 def pack_pieces(splits):

@@ -15,13 +15,15 @@ The compress path's spans (`lz4t.` names):
   route choice included; the spans below sit inside it;
 - `lz4t.pack`: `block.batch.pack_blocks`, padding the blocks into the
   batch arrays (page-locked ones on a GPU);
-- `lz4t.h2d`: `block.batch.to_device_batch`, its checks and the moves
-  to the device (enqueued without a wait from page-locked arrays);
-- `lz4t.launch`: B1's and B5's wrappers from the output allocation to
-  the launch (the plain version on the CPU);
-- `lz4t.d2h`: the engine's copies of a batch's results to the host,
-  with the call's one wait for the kernel and the copies;
-- `lz4t.to_bytes`: cutting each result row to its stream;
+- `lz4t.h2d`: `block.batch.to_device_batch` where the batch moves, its
+  checks and the moves to the device (enqueued without a wait from
+  page-locked arrays); a batch already on its device opens none;
+- `lz4t.launch`: `_build.launch`, the launch of any of B1-B6 (the plain
+  version on the CPU);
+- `lz4t.d2h`: the engine's copies of a batch's results to the host
+  (`TorchBackend._fetch`, the decode routes' too), with the call's one
+  wait for the kernel and the copies;
+- `lz4t.to_bytes`: cutting each result row to its stream (`_cut`);
 - `lz4t.build`: a kernel build at first use (`_build.load`, `module`).
 """
 from __future__ import annotations

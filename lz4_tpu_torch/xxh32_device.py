@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lz4_tpu_torch import _build
 from lz4_tpu_torch.block.batch import resolve_device
 
 P1 = 2654435761
@@ -71,27 +72,17 @@ def xxh32_blocks(data, lens, seed: int = 0, *, cap: int) -> torch.Tensor:
         data = torch.as_tensor(data).to(device)
         lens = torch.as_tensor(lens).to(device)
     _check(data, lens, seed, cap)
-    if data.device.type == "cpu":
-        return xxh32_blocks_plain(data, lens, seed, cap=cap)
-    if data.device.type != "cuda":
-        raise ValueError(f"no B6 kernel for device {data.device}")
-    if data.data_ptr() % 16:
+    if data.is_cuda and data.data_ptr() % 16:
         raise ValueError("data must start on a 16-byte boundary (B6 reads "
                          "16-byte stripes)")
     B = data.shape[0]
     out = torch.empty(B, dtype=torch.int64, device=data.device)
-    if B == 0:
-        return out
-    from lz4_tpu_torch import _build
-    fn = _build.load("xxh32")
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = fn(data.data_ptr(), lens.data_ptr(), out.data_ptr(), B, cap,
-                int(seed), stream)
-    if rc != 0:
-        raise RuntimeError(f"B6 xxh32 launch failed: CUDA error {rc}")
-    launches += 1
-    return out
+    res, n = _build.launch(
+        "xxh32", "B6", data.device,
+        lambda: xxh32_blocks_plain(data, lens, seed, cap=cap), out, data,
+        lens, out, B, cap, int(seed))
+    launches += n
+    return res
 
 
 def grid_for(B: int) -> int:

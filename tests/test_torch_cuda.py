@@ -707,8 +707,7 @@ def test_staged_steps_in_order_and_copies_pinned(cuda, level):
                    for e in cpu_events if e.name.startswith("lz4t.")
                    and e.name != "lz4t.compress_batch")
     assert [n for _, _, n in steps] == [
-        "lz4t.pack", "lz4t.h2d", "lz4t.h2d", "lz4t.launch", "lz4t.d2h",
-        "lz4t.to_bytes"]
+        "lz4t.pack", "lz4t.h2d", "lz4t.launch", "lz4t.d2h", "lz4t.to_bytes"]
     for (_, e1, _), (s2, _, _) in zip(steps, steps[1:]):
         assert e1 <= s2
     copies = {e.name for e in prof.events() if e.name.startswith("Memcpy")}

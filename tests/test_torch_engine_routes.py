@@ -100,18 +100,20 @@ def test_wave_route_matches_tpu_backend(spied):
     assert port.wave_decoded == 1
 
 
-@pytest.mark.parametrize("name", ["wave"] + list(WANT))
+@pytest.mark.parametrize("name", ["wave"] + list(WANT) + ["dict_b2_two_bad"])
 def test_malformed_stream_raises_in_every_route(spied, name):
     tpu, port, jr, tr = spied
+    route = name.removesuffix("_two_bad")
     if name == "wave":
         blocks, max_outs, prefixes, dest = ([gen_text(20000, seed=11)],
                                             [65536], None, "auto")
     else:
-        blocks, max_outs, prefixes, dest = _case(name)
+        blocks, max_outs, prefixes, dest = _case(route)
     comp = [blockcodec.compress(b, dict_prefix=d)
             for b, d in zip(blocks, prefixes or [None] * len(blocks))]
-    # cut the first stream inside its sequences
-    comp[0] = comp[0][: len(comp[0]) // 2]
+    # cut the first stream (both, in "_two_bad") inside its sequences
+    bad = 2 if name.endswith("_two_bad") else 1
+    comp[:bad] = [c[: len(c) // 2] for c in comp[:bad]]
     tpu.decode_dest = port.decode_dest = dest
     with pytest.raises(ValueError) as theirs:
         tpu.decompress_batch(comp, max_outs, dict_prefixes=prefixes)
@@ -120,6 +122,9 @@ def test_malformed_stream_raises_in_every_route(spied, name):
     assert type(ours.value).__name__ == type(theirs.value).__name__
     # the route entered is the gate's; a stream the wave splitter
     # rejects then goes to the host, which raises, in both
-    assert tr[0] == jr[0] == ("wave" if name == "wave" else WANT[name])
+    assert tr[0] == jr[0] == ("wave" if name == "wave" else WANT[route])
     if name == "wave":
         assert tr == jr == ["wave", "host"]
+    if bad == 2:
+        # the first malformed block in index order raises
+        assert str(ours.value) == "malformed block 0"

@@ -11,9 +11,11 @@ import pytest
 import torch
 
 import lz4_tpu_torch
-from lz4_tpu_torch import _build, native
-from lz4_tpu_torch.block import backend
+from lz4_tpu_torch import _build, native, xxh32_device
+from lz4_tpu_torch.block import (backend, decode_cuda, decode_wave,
+                                 encode_cuda, encode_hc, encode_wave)
 from lz4_tpu_torch.block.backend import HostBackend
+from lz4_tpu_torch.block.batch import pack_blocks
 from lz4_tpu_torch.block.decode_cuda import decode_blocks
 from lz4_tpu_torch.block.decode_wave import wave_decode_batch
 from lz4_tpu_torch.block.encode_cuda import encode_blocks
@@ -23,6 +25,7 @@ from lz4_tpu_torch.examples import (sharded_batch, simple_buffer,
                                     turbo_wave_mode)
 from lz4_tpu_torch.frame.batch import (compress_frames_wave,
                                        decompress_frames_wave)
+from lz4_tpu_torch.native import blockcodec
 from lz4_tpu_torch.probes import (b1_split, b4_split, b5_split, decode_split,
                                   fullbench, gather_probe, lane_probe,
                                   level2_route, torture, walk_probe)
@@ -120,6 +123,68 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         fullbench.main(["--seconds", "0"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fullbench.run(None, B=1, NB=256, seconds=0)
+
+
+def _wrapper_case(name, device):
+    """(module, call of its product-kernel wrapper on `device`, the plain
+    version's result on the same arrays) of kernel `name`."""
+    rng = np.random.default_rng(3)
+    rows = torch.from_numpy(rng.integers(0, 4, (2, 64), dtype=np.uint8))
+    lens = torch.tensor([64, 37], dtype=torch.int32)
+    if name == "B1":
+        mod, fn, plain = encode_cuda, encode_cuda.encode_blocks, \
+            encode_cuda.encode_blocks_plain
+        kw = {"cap_n": 64}
+    elif name == "B2":
+        rows = torch.from_numpy(pack_blocks(
+            [blockcodec.compress(b"abc" * 20), b"\x50abcd"], cap=64)[0])
+        mod, fn, plain = decode_cuda, decode_cuda.decode_blocks, \
+            decode_cuda.decode_blocks_plain
+        kw = {"cap_out": 64}
+    elif name == "B3":
+        rows = torch.zeros((2, 1, decode_wave.WCAP), dtype=torch.uint8)
+        rows[:, 0, 0] = 0x20                  # two literals a stream
+        lens = torch.tensor([2, 1], dtype=torch.int32)
+        mod, fn, plain = decode_wave, decode_wave.wave_decode, \
+            decode_wave.wave_decode_plain
+        kw = {}
+    elif name == "B4":
+        mod, fn, plain = encode_wave, encode_wave.find_matches, \
+            encode_wave.find_matches_plain
+        kw = {}
+    elif name == "B5":
+        mod, fn, plain = encode_hc, encode_hc.encode_blocks_hc, \
+            encode_hc.encode_blocks_hc_plain
+        kw = {"cap_n": 64}
+    else:
+        mod, fn, plain = xxh32_device, xxh32_device.xxh32_blocks, \
+            xxh32_device.xxh32_blocks_plain
+        kw = {"cap": 64}
+    want = plain(rows, lens, **kw)
+    return mod, lambda: fn(rows.to(device), lens.to(device), **kw), want
+
+
+@pytest.mark.parametrize("name", ["B1", "B2", "B3", "B4", "B5", "B6"])
+def test_a_wrapper_runs_plain_on_the_cpu_and_raises_elsewhere(name):
+    """Each product kernel's wrapper dispatches on the batch's device:
+    the CPU runs the plain version inside the `lz4t.launch` span (no
+    launch counted, and no `lz4t.h2d`: the batch is already there), a
+    device with no kernel raises a ValueError that names the kernel."""
+    mod, call, want = _wrapper_case(name, "cpu")
+    before = mod.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = call()
+    assert [e.name for e in prof.events()
+            if e.name.startswith("lz4t.")] == ["lz4t.launch"]
+    assert mod.launches == before
+    for g, w in zip(*((x,) if isinstance(x, torch.Tensor) else x
+                      for x in (got, want))):
+        assert torch.equal(g, w)
+    _, call, _ = _wrapper_case(name, "meta")
+    with pytest.raises(ValueError, match=f"no {name} kernel for device meta"):
+        call()
+    assert mod.launches == before
 
 
 def test_native_is_checked_for_imports():
