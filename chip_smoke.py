@@ -14,7 +14,9 @@ launch count set to 0 just before it and read just after:
 - the main path: the fast-tier block round trip through `TorchBackend`
   over a 48 MB real-file corpus in 64 KB blocks (B1 to compress; the
   wave tier, host C splitter plus B3, to decompress), and the same
-  decompress with `wave_decode` off (B2);
+  decompress with `wave_decode` off (B2); B1 alone on the 768 blocks
+  (device tables) and on 64 of them (the CLI's call at `-B4`: solo, a
+  whole SM a block), each with its path and against the plain version;
 - the `max_dist=2048` path: B4 plus the host C emitter, round-tripped
   through the wave tier and the host C decoder;
 - frames: 16 MB linked and independent frames through the sequential
@@ -733,6 +735,20 @@ def phase_main_path(be):
                                    n_h[rows])
     log(f"B1 == plain and B3 == plain on {len(rows)} main-path rows; "
         f"B2 == plain on all {B} rows")
+    # B1 at a host call's 64 blocks (those rows, one call), against the
+    # 768-block call: each with the path its plan takes
+    src64, lens64 = src[rows].contiguous(), lens[rows].contiguous()
+    s0 = encode_cuda.smem_launches
+    enc64_err = compare_encode(
+        encode_cuda.encode_blocks(src64, lens64, cap_n=BLOCK), plain_enc)
+    k_enc64 = cuda_ms(lambda: encode_cuda.encode_blocks(src64, lens64,
+                                                        cap_n=BLOCK))
+    path64, path_all = (("solo" if encode_cuda.plan(n)[0] else "tables")
+                        for n in (len(rows), B))
+    if encode_cuda.smem_launches == s0 or path64 != "solo":
+        raise AssertionError(f"B1 at {len(rows)} blocks left the solo path")
+    log(f"kernel B1 {k_enc64:.3f} ms on {len(rows)} of those blocks "
+        f"({path64}; == plain), {k_enc:.3f} ms on {B} ({path_all})")
     r8 = rows[:PLAIN_ROWS]
     p_enc, _ = host_ms(lambda: encode_cuda.encode_blocks_plain(
         cpu[0][r8], cpu[1][r8], cap_n=BLOCK))
@@ -760,8 +776,9 @@ def phase_main_path(be):
         "enc_bound_ms": enc_bytes / HBM_BYTES_PER_S * 1e3,
         "dec_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
         "wave_bound_ms": wave_bytes / HBM_BYTES_PER_S * 1e3,
-        "enc_err": enc_err, "dec_err": dec_err, "wave_err": wave_err,
-        "blocks": B,
+        "enc_err": max(enc_err, enc64_err), "dec_err": dec_err,
+        "wave_err": wave_err, "blocks": B, "enc64_ms": k_enc64,
+        "enc_path": path_all, "enc64_path": path64,
     }
 
 
@@ -2121,7 +2138,9 @@ def main() -> int:
          "launches": m["launches"]["B1"], "path": "main",
          "max_abs_err": max(enc_err, m["enc_err"]),
          "ms": m["enc_ms"], "plain_ms": m["plain_enc_ms"],
-         "bound_ms": m["enc_bound_ms"], **common},
+         "bound_ms": m["enc_bound_ms"], "launch_path": m["enc_path"],
+         "ms_64_blocks": m["enc64_ms"], "path_64_blocks": m["enc64_path"],
+         **common},
         {"name": "B2 decode_serial",
          "source": "lz4_tpu_torch/csrc/decode_serial.cu",
          "replaces": "lz4_tpu/block/decode_pallas.py:74",

@@ -10,8 +10,17 @@ length of its final literal run. Bytes of out past csizes are
 unspecified. The kernel takes the 64 KB tier (cap_n <= 65536); larger
 blocks go through the engine as linked 64 KB segments. A length outside
 [0, cap_n] is clamped into it.
+
+On the card a call of B blocks up to the card's SMs runs solo (`plan`):
+one CTA a block, each alone on its SM with the block's row and its hash
+table in shared memory, its other warps writing the output the parse
+warp hands them; a larger call runs one warp a block, up to 8 an SM, with
+the tables in device memory. Nothing else picks the path, and the bytes
+are the same on both.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -27,6 +36,9 @@ MAX_CAP_N = 65536
 
 #: kernel launches made by `encode_blocks` (and nowhere else)
 launches = 0
+#: those of them on the solo path (a whole SM a block, in shared memory)
+smem_launches = 0
+_plan_fn = None
 
 
 def _check(acceleration, dict_stride, max_dist, cap_n):
@@ -40,6 +52,29 @@ def _check(acceleration, dict_stride, max_dist, cap_n):
     return min(max(int(acceleration), 1), ACCELERATION_MAX)
 
 
+def plan(B: int, has_dict: bool = False) -> tuple[bool, int]:
+    """(solo, SMs) of a B1 launch of B blocks on the current CUDA device:
+    whether it takes the solo path (B at most the card's SMs, where the
+    card holds the solo kernel's shared memory) and the card's SMs (the C
+    launcher's rule)."""
+    global _plan_fn
+    if _plan_fn is None:
+        _build.load("encode_serial")
+        fn = ctypes.CDLL(
+            _build.library_path("encode_serial")).lz4t_encode_serial_plan
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _plan_fn = fn
+    solo, sms = ctypes.c_int(), ctypes.c_int()
+    rc = _plan_fn(int(B), int(bool(has_dict)), ctypes.byref(solo),
+                  ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"B1 plan failed: CUDA error {rc}")
+    return bool(solo.value), sms.value
+
+
 def encode_blocks(src, lens, dict_bufs=None, dict_lens=None, *, cap_n: int,
                   acceleration: int = 1, dict_stride: int = 3,
                   max_dist: int = 65535):
@@ -49,7 +84,7 @@ def encode_blocks(src, lens, dict_bufs=None, dict_lens=None, *, cap_n: int,
     tensors launch B1. numpy arrays go to the GPU (raising where there is
     none).
     """
-    global launches
+    global launches, smem_launches
     accel = _check(acceleration, dict_stride, max_dist, cap_n)
     device = src.device if isinstance(src, torch.Tensor) else None
     src, lens, dict_bufs, dict_lens = to_device_batch(
@@ -68,6 +103,9 @@ def encode_blocks(src, lens, dict_bufs=None, dict_lens=None, *, cap_n: int,
         outs, src, lens, dict_bufs, dict_lens, *outs, B, cap_n, bound,
         int(dict_bufs is not None), accel, dict_stride, max_dist)
     launches += n
+    if n:
+        with torch.cuda.device(src.device):
+            smem_launches += plan(B, dict_bufs is not None)[0]
     return res
 
 

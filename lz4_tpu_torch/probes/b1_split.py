@@ -2,6 +2,7 @@
 
     python -m lz4_tpu_torch.probes.b1_split [--mb 48] [--runs 5]
         [--variant NAME=DEFINE[,DEFINE...] ...]
+        [--corpus NAME --blocks 64[,N...] [--batches 4] [--seed 1]]
 
 Builds the kernel as it ships and three variants of it, each with a `-D`
 define, and times each on the main-path batch (the real-file corpus in
@@ -11,7 +12,8 @@ warm-up:
 - `full`: the kernel as it ships;
 - `nolits` (`LZ4T_B1_NOLITS`): literal bytes are not copied, the output
   position still advances;
-- `noemit` (`LZ4T_B1_NOEMIT`): nothing is written to the output;
+- `noemit` (`LZ4T_B1_NOEMIT`): nothing is written to the output (on the
+  solo path the parse warp hands no sequence over either);
 - `nosrch` (`LZ4T_B1_NOSRCH`): no hash search, a match is forced 16
   bytes after each anchor with its candidate 16 bytes back (back
   extension, forward count and emission run; the stream is not valid).
@@ -23,13 +25,29 @@ blocks, each with the 64 KB before it as history (the engine's linked
 segments). The
 differences read as: full - nolits = literal copies, nolits - noemit =
 the rest of the emission, full - nosrch = the search beyond what a
-16-byte sequence costs. Prints one JSON line. Needs one CUDA GPU and
+16-byte sequence costs.
+
+With `--corpus`, the batches are instead the first `--batches` calls of
+each `--blocks` count of a benchmark corpus (`benchmark/corpora/
+<NAME>.json`, made from `--seed` on the card, in the benchmark's batch
+order: `--corpus silesia-like --blocks 64` is the `lz4-64k.compress`
+cell's call), each timed on every build, and `full` in dict mode with
+each block's predecessor in the corpus as its history. The four builds
+above are built a second time with `LZ4T_B1_SOLO_WAVES=0`
+(`<name>_tables`), whose launches all take the device-table path, so the
+kernel's two launch shapes are timed at the same B and held to each
+other (`LZ4T_B1_SOLO_WAVES=2` as a `--variant` takes the solo path up to
+two blocks an SM: the crossover); every build reports the path its
+launches took (`solo` or `tables`, its `lz4t_encode_serial_plan`).
+
+Prints one JSON line. Needs one CUDA GPU and
 nvcc; it is the port's counterpart of the TPU probe
 `tools/session_r3g.py`.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -45,6 +63,7 @@ from lz4_tpu_torch.utils.realcorpus import real_corpus
 BLOCK = 65536
 VARIANTS = {"full": (), "nolits": ("LZ4T_B1_NOLITS",),
             "noemit": ("LZ4T_B1_NOEMIT",), "nosrch": ("LZ4T_B1_NOSRCH",)}
+TABLES = "LZ4T_B1_SOLO_WAVES=0"
 
 
 def _card() -> str:
@@ -96,12 +115,63 @@ def _best_ms(run, runs):
     return best
 
 
+def _regs(defs) -> list[str]:
+    return [ln.strip() for ln in
+            _build.build_log("encode_serial", defs).splitlines()
+            if "registers" in ln or "spill" in ln or "smem" in ln]
+
+
+def path_of(defs, B: int, has_dict: bool) -> str:
+    """The path a launch of B blocks takes in the build with `defines`:
+    `solo` or `tables`, as its `lz4t_encode_serial_plan` says."""
+    fn = ctypes.CDLL(_build.library_path(
+        "encode_serial", defs)).lz4t_encode_serial_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    solo, sms = ctypes.c_int(), ctypes.c_int()
+    rc = fn(int(B), int(has_dict), ctypes.byref(solo), ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"B1 plan failed: CUDA error {rc}")
+    return "solo" if solo.value else "tables"
+
+
+def corpus_batches(name: str, blocks: int, batches: int, seed: int,
+                   history: bool = False, device="cuda"):
+    """The first `batches` calls of `blocks` 64 KB blocks of a benchmark
+    corpus, in the benchmark's batch order, as (src, lens) on `device`;
+    with `history`, (src, lens, dict_bufs, dict_lens) where each block's
+    history is the corpus block before it (none for the first)."""
+    from benchmark import corpus
+    spec = corpus.load_spec(name)
+    stratum = spec["stratum_blocks"]
+    n = -(-blocks * batches // stratum) * stratum
+    data, _ = corpus.make_corpus(spec, seed, n, BLOCK, device)
+    lens = torch.full((blocks,), BLOCK, dtype=torch.int32, device=device)
+    out = []
+    for k in range(batches):
+        rows = slice(k * blocks, (k + 1) * blocks)
+        if not history:
+            out.append((data[rows].contiguous(), lens))
+            continue
+        prev = torch.arange(k * blocks - 1, (k + 1) * blocks - 1,
+                            device=device)
+        dlens = torch.where(prev >= 0, DICT_CAP, 0).to(torch.int32)
+        out.append((data[rows].contiguous(), lens,
+                    data[prev.clamp(min=0)].contiguous(), dlens))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=int, default=48)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=DEFINE[,DEFINE...]")
+    ap.add_argument("--corpus", default=None)
+    ap.add_argument("--blocks", default="64")
+    ap.add_argument("--batches", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("b1_split: no CUDA device", file=sys.stderr)
@@ -111,6 +181,8 @@ def main(argv=None) -> int:
         name, _, defs = v.partition("=")
         extra[name] = tuple(d for d in defs.split(",") if d)
     builds = {**VARIANTS, **extra}
+    if args.corpus:
+        return main_batches(args, builds, extra)
     data = real_corpus(args.mb << 20)
     blocks = [data[i: i + BLOCK] for i in range(0, len(data), BLOCK)]
     prefixes = [data[max(0, i - DICT_CAP): i] or None
@@ -139,14 +211,59 @@ def main(argv=None) -> int:
                 ref = outs
             elif name in extra:
                 same[key] = _same(outs, ref)
-            regs[name] = [ln.strip() for ln in
-                          _build.build_log("encode_serial", defs).splitlines()
-                          if "registers" in ln or "spill" in ln]
+            regs[name] = _regs(defs)
     print(json.dumps({
         "probe": "b1_split", "card": _card(),
         "device": torch.cuda.get_device_name(0), "blocks": len(blocks),
         "block": BLOCK, "bytes": len(data), "ms": res, "csize_sum": csum,
         "same_as_full": same, "ptxas": regs}), flush=True)
+    return 0
+
+
+def main_batches(args, builds, extra) -> int:
+    """The batch mode (`--corpus`): each batch of each size timed on every
+    build, the four of `VARIANTS` on both paths."""
+    builds = {**builds, **{f"{k}_tables": (TABLES,) + d
+                           for k, d in VARIANTS.items()}}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda d: _build.build(["encode_serial"], d),
+                    builds.values()))
+    checked = {"full_tables", *extra}
+    runs, same, mean = [], {}, {}
+    for B in (int(x) for x in args.blocks.split(",")):
+        batches = corpus_batches(args.corpus, B, args.batches, args.seed,
+                                 history=True)
+        for k, (src, lens, dic, dlens) in enumerate(batches):
+            row = {"blocks": B, "batch": k, "ms": {}, "ms_dict": {},
+                   "path": {}, "path_dict": {}}
+            for dict_mode in (False, True):
+                ref = None
+                for name, defs in builds.items():
+                    if dict_mode and name not in ("full", *checked):
+                        continue
+                    batch = (src, lens, dic, dlens) if dict_mode else (
+                        src, lens, None, None)
+                    run, outs = _launcher(_build.load("encode_serial", defs),
+                                          *batch)
+                    sfx = "_dict" if dict_mode else ""
+                    row["ms" + sfx][name] = _best_ms(run, args.runs)
+                    row["path" + sfx][name] = path_of(defs, B, dict_mode)
+                    if name == "full":
+                        ref = outs
+                        row["csize_sum" + sfx] = int(outs[1].sum())
+                    elif name in checked:
+                        same[f"{name}{sfx}_B{B}_b{k}"] = _same(outs, ref)
+            runs.append(row)
+        for key in ("ms", "ms_dict"):
+            rows = [r[key] for r in runs if r["blocks"] == B]
+            mean[f"{key}_B{B}"] = {n: sum(r[n] for r in rows) / len(rows)
+                                   for n in rows[0]}
+    print(json.dumps({
+        "probe": "b1_split", "card": _card(),
+        "device": torch.cuda.get_device_name(0), "corpus": args.corpus,
+        "seed": args.seed, "block": BLOCK, "mean_ms": mean,
+        "same_as_full": same, "runs": runs,
+        "ptxas": {n: _regs(d) for n, d in builds.items()}}), flush=True)
     return 0
 
 

@@ -55,7 +55,8 @@ from lz4_tpu_torch import _build
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch
 from lz4_tpu_torch.block.encode_hc import depth_for, plan
 from lz4_tpu_torch.constants import compress_bound
-from lz4_tpu_torch.probes.b1_split import _best_ms, _card, _same
+from lz4_tpu_torch.probes.b1_split import (_best_ms, _card, _same,
+                                            corpus_batches)
 from lz4_tpu_torch.utils.realcorpus import real_corpus
 
 BLOCK = 65536
@@ -121,19 +122,6 @@ def _counts(src, lens, level) -> dict:
             "cycles_prepass_per_block": c["cycles_prepass"] / len(counts),
             "cycles_block_per_block": c["cycles_block"] / len(counts),
             "cycles_writeout_per_block": c["cycles_writeout"] / len(counts)}
-
-
-def corpus_batches(name: str, blocks: int, batches: int, seed: int):
-    """The first `batches` calls of `blocks` 64 KB blocks of a benchmark
-    corpus, in the benchmark's batch order, as (src, lens) on the card."""
-    from benchmark import corpus
-    spec = corpus.load_spec(name)
-    stratum = spec["stratum_blocks"]
-    n = -(-blocks * batches // stratum) * stratum
-    data, _ = corpus.make_corpus(spec, seed, n, BLOCK, "cuda")
-    lens = torch.full((blocks,), BLOCK, dtype=torch.int32, device="cuda")
-    return [(data[k * blocks: (k + 1) * blocks].contiguous(), lens)
-            for k in range(batches)]
 
 
 def batch_report(k, src, lens, level, ms, per_block=None) -> dict:

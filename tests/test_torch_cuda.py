@@ -8,6 +8,8 @@ the card (and without JAX, which tests/conftest.py imports) run:
 
 Tolerance: exact (LZ4 output is deterministic integers).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -139,6 +141,77 @@ def test_b1_more_than_64_blocks(cuda):
     fwd = _encode_both(cuda, blocks, cap=8192)
     rev = _encode_both(cuda, blocks[::-1], cap=8192)
     assert rev[::-1] == fwd
+
+
+@functools.lru_cache(maxsize=1)
+def _b1_cases():
+    """(blocks, prefixes, cap, kwargs) for `test_b1_solo_and_device_tables`."""
+    rng = np.random.default_rng(81)
+    rand = _random_blocks(rng, 10, 8192)
+    hist = gen_text(70000, seed=82)
+    partial = [hist[-int(k):] or None
+               for k in rng.integers(0, 70000, len(rand))]
+    odd = _random_blocks(rng, 8, 5003) + [b"", b"x" * 5003]
+    odd_hist = [hist[-int(k):] or None
+                for k in rng.integers(0, 70000, len(odd))]
+    walk = gen_hash_walk(70000, seed=83)
+    coll = [gen_hash_walk(16384, seed=84), gen_slot_words(16384, seed=84),
+            gen_slot_words(3000, pool=4, seed=85), b"", b"q" * 13]
+    coll_hist = [walk, walk[-5000:], None, walk, walk[-1:]]
+    full = [gen_text(65536, seed=86), gen_buffer(65536, 0.7, seed=87),
+            bytes(65536), rng.bytes(65536)]
+    return {
+        "random": (rand, None, 8192, {}),
+        "random_max_acceleration": (rand, None, 8192,
+                                    {"acceleration": 65537}),
+        "dict_partial": (rand, partial, 8192, {}),
+        "dict_max_acceleration": (rand, partial, 8192,
+                                  {"acceleration": 65537}),
+        "max_dist": (rand, None, 8192, {"max_dist": 3000}),
+        "dict_max_dist_stride_1": (rand, partial, 8192,
+                                   {"max_dist": 3000, "dict_stride": 1}),
+        "odd_width": (odd, None, 5003, {}),
+        "odd_width_dict": (odd, odd_hist, 5003, {"acceleration": 3}),
+        "collisions": (coll, None, 16384, {}),
+        "collisions_max_acceleration": (coll, None, 16384,
+                                        {"acceleration": 65537}),
+        "collisions_dict": (coll, coll_hist, 16384, {}),
+        "full_rows": (full, None, 65536, {}),
+        "full_rows_dict": (full, [hist, None, hist[-100:], hist], 65536, {}),
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "random", "random_max_acceleration", "dict_partial",
+    "dict_max_acceleration", "max_dist", "dict_max_dist_stride_1",
+    "odd_width", "odd_width_dict", "collisions",
+    "collisions_max_acceleration", "collisions_dict", "full_rows",
+    "full_rows_dict"])
+def test_b1_solo_and_device_tables(cuda, case):
+    """B1's two launch shapes, byte for byte against the plain version:
+    calls of 1, len(blocks) and SMs blocks run solo (a whole SM a block),
+    SMs + 1 on the device tables; row r holds block r mod len(blocks).
+    `smem_launches` rises by one exactly on the solo calls."""
+    blocks, prefixes, cap, kw = _b1_cases()[case]
+    has_dict = prefixes is not None
+    arrays = pack_blocks(blocks, prefixes, cap=cap, with_dict=has_dict)
+    po, pc, pt = encode_cuda.encode_blocks_plain(
+        *to_device_batch(*arrays, device="cpu"), cap_n=cap, **kw)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B in (1, len(blocks), sms, sms + 1):
+        idx = np.arange(B) % len(blocks)
+        rows = [None if a is None else a[idx] for a in arrays]
+        solo, card_sms = encode_cuda.plan(B, has_dict)
+        assert (solo, card_sms) == (B <= sms, sms)
+        n0, s0 = encode_cuda.launches, encode_cuda.smem_launches
+        go, gc, gt = (x.cpu() for x in encode_cuda.encode_blocks(
+            *to_device_batch(*rows, device=cuda), cap_n=cap, **kw))
+        assert (encode_cuda.launches, encode_cuda.smem_launches) == (
+            n0 + 1, s0 + solo)
+        assert torch.equal(gc, pc[idx]) and torch.equal(gt, pt[idx]), B
+        for r, i in enumerate(idx.tolist()):
+            n = int(pc[i])
+            assert torch.equal(go[r, :n], po[i, :n]), (B, r)
 
 
 @pytest.mark.parametrize("seed", range(4))

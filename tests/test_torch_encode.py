@@ -116,3 +116,20 @@ def test_plain_matches_wrapper_and_validates():
         encode_blocks(*arrays, cap_n=4096, max_dist=70000)
     with pytest.raises(TypeError):
         encode_blocks(arrays[0].to(torch.int32), arrays[1], cap_n=4096)
+
+
+def test_cpu_backend_launches_nothing():
+    """`TorchBackend("cpu")` at level 1 runs B1's plain version, with and
+    without histories: neither launch counter moves, and no call is
+    counted on the solo path."""
+    from lz4_tpu_torch.block import encode_cuda
+    from lz4_tpu_torch.parallel.engine import TorchBackend
+    blocks = [gen_text(8192, seed=91), gen_buffer(6000, 0.7, seed=92)]
+    n, s = encode_cuda.launches, encode_cuda.smem_launches
+    be = TorchBackend("cpu")
+    for prefixes in (None, [blocks[1], None]):
+        comp = be.compress_batch(blocks, dict_prefixes=prefixes)
+        assert be.decompress_batch(comp, [8192] * 2,
+                                   dict_prefixes=prefixes) == blocks
+    assert (encode_cuda.launches, encode_cuda.smem_launches) == (n, s)
+    assert s == 0 and be.host_fallbacks == 0
