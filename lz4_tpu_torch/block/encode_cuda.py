@@ -38,6 +38,8 @@ MAX_CAP_N = 65536
 launches = 0
 #: those of them on the solo path (a whole SM a block, in shared memory)
 smem_launches = 0
+#: those of them given a history (`dict_bufs`): B1's dict instantiation
+dict_launches = 0
 _plan_fn = None
 
 
@@ -84,7 +86,7 @@ def encode_blocks(src, lens, dict_bufs=None, dict_lens=None, *, cap_n: int,
     tensors launch B1. numpy arrays go to the GPU (raising where there is
     none).
     """
-    global launches, smem_launches
+    global launches, smem_launches, dict_launches
     accel = _check(acceleration, dict_stride, max_dist, cap_n)
     device = src.device if isinstance(src, torch.Tensor) else None
     src, lens, dict_bufs, dict_lens = to_device_batch(
@@ -104,8 +106,10 @@ def encode_blocks(src, lens, dict_bufs=None, dict_lens=None, *, cap_n: int,
         int(dict_bufs is not None), accel, dict_stride, max_dist)
     launches += n
     if n:
+        has_dict = dict_bufs is not None
+        dict_launches += has_dict
         with torch.cuda.device(src.device):
-            smem_launches += plan(B, dict_bufs is not None)[0]
+            smem_launches += plan(B, has_dict)[0]
     return res
 
 

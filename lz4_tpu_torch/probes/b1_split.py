@@ -2,7 +2,8 @@
 
     python -m lz4_tpu_torch.probes.b1_split [--mb 48] [--runs 5]
         [--variant NAME=DEFINE[,DEFINE...] ...]
-        [--corpus NAME --blocks 64[,N...] [--batches 4] [--seed 1]]
+        [--corpus NAME --blocks 64[,N...] [--batches 4] [--seed 1]
+         [--linked]]
 
 Builds the kernel as it ships and three variants of it, each with a `-D`
 define, and times each on the main-path batch (the real-file corpus in
@@ -32,7 +33,12 @@ each `--blocks` count of a benchmark corpus (`benchmark/corpora/
 <NAME>.json`, made from `--seed` on the card, in the benchmark's batch
 order: `--corpus silesia-like --blocks 64` is the `lz4-64k.compress`
 cell's call), each timed on every build, and `full` in dict mode with
-each block's predecessor in the corpus as its history. The four builds
+each block's predecessor in the corpus as its history. With `--linked`
+the corpus is made in rows of 128 KB, and each block is its row's second
+half with the first half as its history: `--corpus silesia-like
+--blocks 64 --linked` is the `lz4f-linked-64k.compress` cell's call,
+whose history the block repeats (a predecessor is unrelated data), and
+the batches without a history are the same blocks. The four builds
 above are built a second time with `LZ4T_B1_SOLO_WAVES=0`
 (`<name>_tables`), whose launches all take the device-table path, so the
 kernel's two launch shapes are timed at the same B and held to each
@@ -137,20 +143,30 @@ def path_of(defs, B: int, has_dict: bool) -> str:
 
 
 def corpus_batches(name: str, blocks: int, batches: int, seed: int,
-                   history: bool = False, device="cuda"):
+                   history: bool = False, device="cuda",
+                   linked: bool = False):
     """The first `batches` calls of `blocks` 64 KB blocks of a benchmark
     corpus, in the benchmark's batch order, as (src, lens) on `device`;
     with `history`, (src, lens, dict_bufs, dict_lens) where each block's
-    history is the corpus block before it (none for the first)."""
+    history is the corpus block before it (none for the first). With
+    `linked` the corpus rows are 128 KB: a block is its row's second
+    half, and its history (with `history`) the row's first half."""
     from benchmark import corpus
     spec = corpus.load_spec(name)
     stratum = spec["stratum_blocks"]
     n = -(-blocks * batches // stratum) * stratum
-    data, _ = corpus.make_corpus(spec, seed, n, BLOCK, device)
+    data, _ = corpus.make_corpus(spec, seed, n, 2 * BLOCK if linked
+                                 else BLOCK, device)
     lens = torch.full((blocks,), BLOCK, dtype=torch.int32, device=device)
     out = []
     for k in range(batches):
         rows = slice(k * blocks, (k + 1) * blocks)
+        if linked:
+            src = data[rows, BLOCK:].contiguous()
+            out.append((src, lens, data[rows, :BLOCK].contiguous(),
+                        torch.full_like(lens, DICT_CAP)) if history
+                       else (src, lens))
+            continue
         if not history:
             out.append((data[rows].contiguous(), lens))
             continue
@@ -172,7 +188,10 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", default="64")
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--linked", action="store_true")
     args = ap.parse_args(argv)
+    if args.linked and not args.corpus:
+        ap.error("--linked needs --corpus")
     if not torch.cuda.is_available():
         print("b1_split: no CUDA device", file=sys.stderr)
         return 2
@@ -232,7 +251,7 @@ def main_batches(args, builds, extra) -> int:
     runs, same, mean = [], {}, {}
     for B in (int(x) for x in args.blocks.split(",")):
         batches = corpus_batches(args.corpus, B, args.batches, args.seed,
-                                 history=True)
+                                 history=True, linked=args.linked)
         for k, (src, lens, dic, dlens) in enumerate(batches):
             row = {"blocks": B, "batch": k, "ms": {}, "ms_dict": {},
                    "path": {}, "path_dict": {}}
@@ -261,7 +280,8 @@ def main_batches(args, builds, extra) -> int:
     print(json.dumps({
         "probe": "b1_split", "card": _card(),
         "device": torch.cuda.get_device_name(0), "corpus": args.corpus,
-        "seed": args.seed, "block": BLOCK, "mean_ms": mean,
+        "linked": args.linked, "seed": args.seed, "block": BLOCK,
+        "mean_ms": mean,
         "same_as_full": same, "runs": runs,
         "ptxas": {n: _regs(d) for n, d in builds.items()}}), flush=True)
     return 0

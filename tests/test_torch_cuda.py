@@ -214,6 +214,50 @@ def test_b1_solo_and_device_tables(cuda, case):
             assert torch.equal(go[r, :n], po[i, :n]), (B, r)
 
 
+def test_b1_linked_cell_batch(cuda):
+    """The lz4f-linked-64k.compress cell's call: 64 blocks of 64 KB, each
+    with the 64 KB before it in its 128 KB row of the silesia-like
+    corpus as its history, through `TorchBackend.compress_batch`. It
+    runs solo in dict mode (`launches`, `smem_launches` and
+    `dict_launches` each rise by one; the same blocks without prefixes
+    leave `dict_launches` as it was), and sampled rows equal the plain
+    version byte for byte and, joined with their history, decode by the
+    benchmark's strict reference to their rows."""
+    from benchmark import corpus, reference, reference_linked
+    spec = corpus.load_spec("silesia-like")
+    data, _ = corpus.make_corpus(spec, 2650000017, spec["stratum_blocks"],
+                                 131072, cuda)
+    host = data[:64].cpu().numpy()
+    del data
+    prefixes = [row[:65536].tobytes() for row in host]
+    blocks = [row[65536:].tobytes() for row in host]
+    assert encode_cuda.plan(64, True)[0]
+    be = TorchBackend(cuda)
+
+    def counts():
+        return (encode_cuda.launches, encode_cuda.smem_launches,
+                encode_cuda.dict_launches)
+    n0, s0, d0 = counts()
+    linked = be.compress_batch(blocks, level=1, acceleration=1,
+                               dict_prefixes=prefixes,
+                               favor_dec_speed=False)
+    assert counts() == (n0 + 1, s0 + 1, d0 + 1)
+    alone = be.compress_batch(blocks, level=1, acceleration=1,
+                              dict_prefixes=[None] * 64)
+    assert counts() == (n0 + 2, s0 + 2, d0 + 1)
+    assert sum(map(len, linked)) < sum(map(len, alone))
+    rows = [0, 21, 42, 63]
+    arrays = pack_blocks([blocks[i] for i in rows],
+                         [prefixes[i] for i in rows], cap=65536,
+                         with_dict=True)
+    po, pc, _ = encode_cuda.encode_blocks_plain(
+        *to_device_batch(*arrays, device="cpu"), cap_n=65536)
+    for j, i in enumerate(rows):
+        assert po[j, : pc[j]].numpy().tobytes() == linked[i], i
+        joined = reference_linked.join(prefixes[i], linked[i])
+        assert reference.decode_block(joined, 131072) == host[i].tobytes()
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_b2_random_and_mutated(cuda, seed):
     rng = np.random.default_rng(100 + seed)
