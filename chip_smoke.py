@@ -173,6 +173,21 @@ def one_c_call(fn):
         native.SPAN_ROWS = rows
 
 
+def b1_resources() -> dict:
+    """B1's four kernels (nvcc's report), each with its dynamic shared
+    memory and threads from the library: solo and on device tables,
+    without and with a history."""
+    lib = ctypes.CDLL(_build.library_path("encode_serial"))
+    solo, tables = (lib.lz4t_encode_serial_threads(k) for k in (1, 0))
+    return {"kernels": kernel_resources("encode_serial", {
+        "solo": ("encode_solo_kernelILb0", lib.lz4t_encode_serial_smem(0),
+                 solo),
+        "solo dict": ("encode_solo_kernelILb1",
+                      lib.lz4t_encode_serial_smem(1), solo),
+        "tables": ("encode_kernelILb0", 0, tables),
+        "tables dict": ("encode_kernelILb1", 0, tables)})}
+
+
 def b5_resources() -> dict:
     """B5's registers per thread (nvcc's report) and the dynamic shared
     memory of each CTA (the kernel's own figure)."""
@@ -749,6 +764,26 @@ def phase_main_path(be):
         raise AssertionError(f"B1 at {len(rows)} blocks left the solo path")
     log(f"kernel B1 {k_enc64:.3f} ms on {len(rows)} of those blocks "
         f"({path64}; == plain), {k_enc:.3f} ms on {B} ({path_all})")
+    # the same 64 blocks each with the 64 KB before it as its history (the
+    # first with none), as a linked frame's next blocks come: the dict
+    # solo path's window, history slots taking block bytes as the anchor
+    # passes them
+    prev = torch.tensor([r - 1 for r in rows], device=src.device)
+    hist64 = src[prev.clamp(min=0)].contiguous()
+    hlens64 = torch.where(prev >= 0, BLOCK, 0).to(torch.int32)
+    plain_dict = encode_cuda.encode_blocks_plain(
+        cpu[0][rows], cpu[1][rows], hist64.cpu(), hlens64.cpu(), cap_n=BLOCK)
+    s0, d0 = encode_cuda.smem_launches, encode_cuda.dict_launches
+    enc64d_err = compare_encode(encode_cuda.encode_blocks(
+        src64, lens64, hist64, hlens64, cap_n=BLOCK), plain_dict)
+    if (encode_cuda.smem_launches, encode_cuda.dict_launches) != (s0 + 1,
+                                                                   d0 + 1):
+        raise AssertionError(f"B1 at {len(rows)} blocks with their history "
+                             "left the dict solo path")
+    k_enc64d = cuda_ms(lambda: encode_cuda.encode_blocks(
+        src64, lens64, hist64, hlens64, cap_n=BLOCK))
+    log(f"kernel B1 {k_enc64d:.3f} ms on those {len(rows)} blocks with "
+        f"their history (solo dict; == plain)")
     r8 = rows[:PLAIN_ROWS]
     p_enc, _ = host_ms(lambda: encode_cuda.encode_blocks_plain(
         cpu[0][r8], cpu[1][r8], cap_n=BLOCK))
@@ -776,8 +811,9 @@ def phase_main_path(be):
         "enc_bound_ms": enc_bytes / HBM_BYTES_PER_S * 1e3,
         "dec_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
         "wave_bound_ms": wave_bytes / HBM_BYTES_PER_S * 1e3,
-        "enc_err": max(enc_err, enc64_err), "dec_err": dec_err,
+        "enc_err": max(enc_err, enc64_err, enc64d_err), "dec_err": dec_err,
         "wave_err": wave_err, "blocks": B, "enc64_ms": k_enc64,
+        "enc64_dict_ms": k_enc64d,
         "enc_path": path_all, "enc64_path": path64,
     }
 
@@ -2140,6 +2176,7 @@ def main() -> int:
          "ms": m["enc_ms"], "plain_ms": m["plain_enc_ms"],
          "bound_ms": m["enc_bound_ms"], "launch_path": m["enc_path"],
          "ms_64_blocks": m["enc64_ms"], "path_64_blocks": m["enc64_path"],
+         "ms_64_blocks_dict": m["enc64_dict_ms"], **b1_resources(),
          **common},
         {"name": "B2 decode_serial",
          "source": "lz4_tpu_torch/csrc/decode_serial.cu",

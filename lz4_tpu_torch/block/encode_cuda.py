@@ -13,10 +13,11 @@ blocks go through the engine as linked 64 KB segments. A length outside
 
 On the card a call of B blocks up to the card's SMs runs solo (`plan`):
 one CTA a block, each alone on its SM with the block's row and its hash
-table in shared memory, its other warps writing the output the parse
-warp hands them; a larger call runs one warp a block, up to 8 an SM, with
-the tables in device memory. Nothing else picks the path, and the bytes
-are the same on both.
+table in shared memory (in dict mode one window holds the history and
+the block's bytes up to LEAD past the anchor), its other warps writing
+the output the parse warp hands them; a larger call runs one warp a
+block, up to 8 an SM, with the tables in device memory. Nothing else
+picks the path, and the bytes are the same on both.
 """
 from __future__ import annotations
 
@@ -176,10 +177,10 @@ def _scan_serial(seq, hsh, tab, sp, accel0, low, mflimit, matchlimit,
 
 
 def _encode_one(buf: bytes, n: int, d0: int, low: int, accel0: int,
-                dict_stride: int, max_dist: int, model=None):
-    """One block: buf = [d0 history bytes | block row | zeros]. With a
-    `LockstepModel`, its history pre-insert and scan replace the serial
-    ones."""
+                dict_stride: int, max_dist: int, model=None, cap_n=0):
+    """One block: buf = [d0 history bytes | block row (cap_n) | zeros].
+    With a `LockstepModel`, its history pre-insert and scan replace the
+    serial ones, and it sees each sequence."""
     seq, hsh = _words_and_hashes(buf)
     tab = [0] * (1 << HASH_LOG)
     mflimit = d0 + n - MFLIMIT
@@ -191,6 +192,7 @@ def _encode_one(buf: bytes, n: int, d0: int, low: int, accel0: int,
             tab[hsh[q]] = q
     else:
         model.preinsert(tab, hsh, low, d0, dict_stride)
+        model.begin(buf, d0, n, cap_n)
 
     def find(sp, tail=None):
         return scan(seq, hsh, tab, sp, accel0, low, mflimit, matchlimit,
@@ -205,8 +207,12 @@ def _encode_one(buf: bytes, n: int, d0: int, low: int, accel0: int,
             p2 -= 1
             c2 -= 1
         offset = p2 - c2
-        ml = (p - p2) + MINMATCH + _fwd_count(
-            buf, p + MINMATCH, cand + MINMATCH, matchlimit - (p + MINMATCH))
+        fc = _fwd_count(buf, p + MINMATCH, cand + MINMATCH,
+                        matchlimit - (p + MINMATCH))
+        ml = (p - p2) + MINMATCH + fc
+        if model is not None:
+            model.sequence(p, cand, anchor, low, p - p2, fc, matchlimit,
+                           p2 + ml)
         litlen = p2 - anchor
         m4 = ml - MINMATCH
         out.append((min(litlen, 15) << 4) | min(m4, 15))
@@ -253,7 +259,7 @@ def _encode_batch(src, lens, dict_bufs, dict_lens, cap_n, acceleration,
             low = 0
             buf = src_np[b].tobytes() + pad
         stream, trail = _encode_one(buf, n, d0, low, accel << SKIP_TRIGGER,
-                                    dict_stride, max_dist, model)
+                                    dict_stride, max_dist, model, cap_n)
         out[b, : len(stream)] = torch.frombuffer(stream, dtype=torch.uint8)
         csizes[b] = len(stream)
         trailing[b] = trail
@@ -275,6 +281,16 @@ def encode_blocks_plain(src, lens, dict_bufs=None, dict_lens=None, *,
 # --------------------------------------------------------------------------
 
 WARP = 32
+#: block bytes the dict solo path stages into its window past the anchor,
+#: how far past it the served part always reaches, and the least bytes
+#: it stages at once (but to catch up): the kernel's kLead, kNear and
+#: kStageMin, which a test reads from its source as it does kReach
+LEAD = 8192
+NEAR = LEAD // 2
+STAGE_MIN = 512
+#: a window cuts a probe pair whose odd probe lies within REACH of the
+#: served part's end (the kernel's kReach)
+REACH = 160
 
 
 def window_positions(wp: int, j0: int):
@@ -294,23 +310,154 @@ class LockstepModel:
     max per slot, here in reverse order). Counts `windows`, `shared`
     (committed probes that took their candidate from a lower lane of the
     same hash), `tails` (probes that took the pending tail insert as
-    their candidate) and `hits`."""
+    their candidate) and `hits`.
+
+    With a history it also models the dict solo path's shared-memory
+    window (`WinSource` in `csrc/encode_serial.cu`): every read the parse
+    warp makes, lane by lane (probes, candidates, the back and forward
+    counts in their warp steps, the tail insert's hash) against its
+    staging (block bytes up to LEAD past the anchor in 16-byte pieces,
+    STAGE_MIN or more at once, of which at least NEAR past it are served
+    once a sequence ends; the newest pieces in flight are not, unless
+    that falls short of NEAR; a forward count stages on as if the anchor
+    were where its match has reached), and the window's cut: a probe
+    pair (an even lane and the odd one after it) whose odd probe lies
+    past the served part's end less REACH neither inserts nor takes a
+    match, so a scan that reaches one before a match or the block's end
+    leaves the window (`left`): the kernel's parse goes on from there
+    with the row, and the model follows the block's reads no further. It
+    asserts, while in the window, that no read of the history falls
+    below the anchor's block index + 1 (which lets a history slot take a
+    block byte once the anchor passes it) nor in a slot staged over, and
+    that no block read runs past the served part; and counts the reads
+    as the kernel's counting build does: `hist_reads` (the window's
+    history), `block_reads` (block bytes) and `staged` (bytes); besides,
+    `hist_windows` (windows in which some lane read a candidate in the
+    history) and `hist_sequences` (matches whose candidate lies there).
+    """
 
     def __init__(self):
         self.windows = self.shared = self.hits = self.tails = 0
+        self.hist_reads = self.block_reads = self.left = 0
+        self.staged = self.hist_windows = self.hist_sequences = 0
+        self.d0 = 0
+        self.win = False
 
     @staticmethod
     def preinsert(tab, hsh, low, d0, dict_stride):
         for q in reversed(range(low, d0, dict_stride)):
             tab[hsh[q]] = max(tab[hsh[q]], q)
 
+    def begin(self, buf, d0, n, cap_n):
+        """A block's start: block bytes [0, LEAD) are in the window, and
+        it stages on up to the block's end rounded up to 16. A row not
+        of a multiple of 16 bytes goes to the row from the start."""
+        self.buf, self.d0 = buf, d0
+        self.anchor = d0
+        self.pending = None
+        self.served = self.issued = LEAD
+        self.end = min((n + 15) & ~15, cap_n)
+        self.win = d0 > 0 and cap_n % 16 == 0
+        self.left += d0 > 0 and not self.win
+
+    def _read(self, q, width, check=True):
+        """A read of the window at q (check: one whose bytes are used, so
+        it has to find them in their slot)."""
+        if not self.win:
+            return
+        if q >= self.d0:
+            self.block_reads += 1
+            if check and q - self.d0 + width > self.served:
+                raise AssertionError(
+                    f"block read at {q - self.d0} past the served part "
+                    f"({self.served})")
+            return
+        self.hist_reads += 1
+        if check and q <= self.anchor - self.d0:
+            raise AssertionError(
+                f"history read at {q} below the anchor's block index + 1 "
+                f"({self.anchor - self.d0 + 1})")
+        if check and q < self.issued - LEAD:
+            raise AssertionError(
+                f"history read at {q} of a slot staged over (below "
+                f"{self.issued - LEAD})")
+
+    def _stage(self, ax):
+        if not self.win:
+            return
+        t = min(self.end, (ax + LEAD) & ~15)
+        need = min(self.end, ax + NEAR)
+        if t - self.issued < STAGE_MIN and self.served >= need:
+            return
+        old = self.issued
+        self.issued = max(old, t)
+        self.staged += self.issued - old
+        if self.served < need:
+            self.served = old if self.issued > old and old >= need \
+                else self.issued
+
+    def _cut_from(self, positions):
+        """The first lane of the window's cut probe pairs (None: none)."""
+        if not self.win or self.served >= self.end:
+            return None
+        reach = self.d0 + self.served - REACH
+        return next((k for k in range(0, WARP, 2)
+                     if positions[k + 1] > reach), None)
+
+    def sequence(self, p, cand, anchor, low, kb, fc, matchlimit, nxt):
+        """The kernel's reads after a scan's hit at p (candidate cand,
+        back count kb, forward count fc), up to the next scan from nxt:
+        the back and forward counts' warp steps where the scan's compare
+        did not settle the match and the tail insert's hash on every lane;
+        the staging for the new anchor follows the next scan's first
+        window's loads."""
+        if not self.win:
+            return
+        self.hist_sequences += cand < self.d0
+        self.anchor = anchor
+        q1, q2 = p + MINMATCH, cand + MINMATCH
+        maxn = matchlimit - q1
+        if ((self.ext & 7) == 4 and maxn > 4) or self.ext & 8:
+            kmax = min(p - anchor, cand - low)
+            for i in range(min(kmax, (kb // 32 + 1) * 32)):
+                self._read(p - 1 - i, 1)
+                self._read(cand - 1 - i, 1)
+            for c in range(0, min(maxn, (fc // 128 + 1) * 128), 4):
+                if c >= 128 and c % 128 == 0:   # fwd_count stages on
+                    self._stage(q1 + c - self.d0)
+                self._read(q1 + c, 4)
+                self._read(q2 + c, 4)
+        for _ in range(WARP):
+            self._read(nxt - 2, 4)
+        self.pending = nxt - self.d0
+
+    def _candidate(self, q, e, low, check):
+        """A lane's compare of its candidate e for probe q: its reads (the
+        4 bytes at e, the next 4 at both, and the byte before both where
+        the match may extend back; check: a lane not cut, whose bytes are
+        used); returns the scan's ext (equal bytes of the next 4, bit 3
+        for the byte before)."""
+        buf = self.buf
+        back = min(q - self.anchor, e - low) > 0
+        for r in (e, q + 4, e + 4):
+            self._read(r, 4, check)
+        if back:
+            self._read(q - 1, 1, check)
+            self._read(e - 1, 1, check)
+        f = 0
+        while f < 4 and buf[q + 4 + f] == buf[e + 4 + f]:
+            f += 1
+        return f | (back and buf[q - 1] == buf[e - 1]) << 3
+
     def scan(self, seq, hsh, tab, p, accel0, low, mflimit, matchlimit,
              max_dist, tail=None):
         ht, t2 = tail if tail is not None else (None, None)
         wp, j0 = p, accel0
+        self.anchor = p
         while True:
             self.windows += 1
             positions, wp = window_positions(wp, j0)
+            cut = self._cut_from(positions)
             lanes = []
             for k, pos in enumerate(positions):
                 active = canhit = pos <= mflimit
@@ -319,25 +466,41 @@ class LockstepModel:
                     active = pos - ((j0 + k - 1) >> SKIP_TRIGGER) <= mflimit
                     q = min(pos, matchlimit)
                 h = hsh[q] if active else 0x10000 + k
+                if active:    # a cut lane reads too, but serves nothing
+                    self._read(q, 4, cut is None or k < cut)
                 lanes.append([active, canhit, q, h,
-                              tab[h] if active else 0])
+                              tab[h] if active else 0, 0])
+            if self.pending is not None:
+                # staging for the new anchor: after the next scan's first
+                # window has loaded, before its candidates are read
+                self._stage(self.pending)
+                self.pending = None
             # __match_any_sync, masked to lower lanes
             last_of = {}
             lower_of = []
-            for k, (_, _, q, h, _) in enumerate(lanes):
+            for k, (_, _, q, h, _, _) in enumerate(lanes):
                 lower_of.append(last_of.get(h))
                 last_of[h] = k
             hits = []
+            touched = False
             for k, lane in enumerate(lanes):
-                active, canhit, q, h, e = lane
+                active, canhit, q, h, e, _ = lane
                 if lower_of[k] is not None:
                     e = lane[4] = lanes[lower_of[k]][2]
                 elif active and h == ht:
                     e = lane[4] = t2
                     self.tails += 1
-                if (canhit and low <= e < q and q - e <= max_dist
-                        and seq[e] == seq[q]):
-                    hits.append(k)
+                if canhit and low <= e < q and q - e <= max_dist:
+                    check = cut is None or k < cut
+                    touched |= self.win and check and e < self.d0
+                    lane[5] = self._candidate(q, e, low, check)
+                    if seq[e] == seq[q]:
+                        hits.append(k)
+            self.hist_windows += touched
+            if cut is not None and (not hits or hits[0] >= cut) and all(
+                    lane[0] for lane in lanes[:cut]):
+                self.win = False        # the kernel goes on with the row
+                self.left += 1
             last = hits[0] if hits else WARP - 1
             # commit lanes up to the first hit: the highest of each hash
             # group writes
@@ -354,6 +517,7 @@ class LockstepModel:
                 tab[h] = lanes[k][2]
             if hits:
                 self.hits += 1
+                self.ext = lanes[hits[0]][5]
                 return lanes[hits[0]][2], lanes[hits[0]][4]
             if not all(lane[0] for lane in lanes):
                 return None, None

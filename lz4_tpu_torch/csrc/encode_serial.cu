@@ -32,15 +32,19 @@
 //   waits.
 // - Solo, for calls of at most one block per SM (a host call of 64
 //   blocks, a single block): one CTA owns an SM and parses one block at a
-//   time, with the block's row (staged once, with a zero tail) and its
-//   table in shared memory (solo_smem: 213,024 bytes, 221,216 in dict
-//   mode with the bit array; the history stays in device memory). Every
-//   link of the lone chain then comes back from shared memory. The first
-//   warp parses and hands each sequence over as a record (output
-//   position, literal start and length, offset, match length) through a
-//   ring in shared memory; the CTA's other three warps, one on each of
-//   the SM's other schedulers, write the tokens, length bytes and
-//   literals, so the emission leaves the chain.
+//   time, with the block's bytes and its table in shared memory
+//   (solo_smem: 213,024 bytes; 229,408 in dict mode). Without a history
+//   the row is staged once, with a zero tail. In dict mode the table has
+//   the bit array, and the history and the row share one window
+//   (WinSource), since the 136 KB table, the 64 KB history and the 64 KB
+//   row do not fit at once; a block whose parse reads past what the
+//   window holds is parsed again with its row staged and its history in
+//   device memory (row_block). Every link of the lone chain then comes
+//   back from shared memory. The first warp parses and hands each sequence
+//   over as a record (output position, literal start and length, offset,
+//   match length) through a ring in shared memory; the CTA's other three
+//   warps, one on each of the SM's other schedulers, write the tokens,
+//   length bytes and literals, so the emission leaves the chain.
 // Either way the table is cleared for every block, so nothing leaks from
 // one block to another (unlike the TPU kernel's 6-bit grid-step tag). A
 // zeroed entry reads as position 0, which the TPU table also holds for
@@ -75,9 +79,11 @@
 //   atomic max (a 32-bit CAS on the word that holds two entries).
 
 #include <atomic>
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mbarrier.cuh"
 #include "smem.cuh"
 
 namespace {
@@ -105,13 +111,24 @@ constexpr int kEnd = 1 << 30;       // the head's flag: the last record is out
 // records a release of the head (64 blocks on an H100: every record 4.40
 // ms, every 4 or 16 records 4.32 ms)
 constexpr int kPublish = 16;
+// Dict mode's window: the 64 KB history and kLead block bytes ahead of it
+// (16-byte pieces), then a 16-byte tail
+constexpr int kLead = 8192;
+constexpr int kWin = kDictCap + kLead;
+constexpr int kNear = kLead / 2;    // served at least this far past the anchor
+constexpr int kStageMin = 512;      // bytes staged a group, but to catch up
+// a probe's reads, and its match's up to the first forward step and the
+// tail insert, end within kReach bytes of it
+constexpr int kReach = 160;
 
 // Cost-split variants (lz4_tpu_torch/probes/b1_split.py), not for use:
 // LZ4T_B1_NOLITS copies no literal bytes, LZ4T_B1_NOEMIT writes no output
 // byte (op still advances; the solo path hands over the last record
 // only), LZ4T_B1_NOSRCH replaces the hash search with a match forced 16
-// bytes after the anchor, 16 bytes back. LZ4T_B1_SOLO_WAVES=W takes the
-// solo path up to W blocks an SM (0: every launch on the device tables).
+// bytes after the anchor, 16 bytes back, LZ4T_B1_NOPRE makes no history
+// pre-insert. LZ4T_B1_SOLO_WAVES=W takes the solo path up to W blocks an
+// SM (0: every launch on the device tables). LZ4T_B1_COUNT counts the
+// dict solo parse's reads (lz4t_encode_serial_counts).
 #ifdef LZ4T_B1_NOLITS
 constexpr bool kCopyLits = false;
 #else
@@ -127,10 +144,25 @@ constexpr bool kSearch = false;
 #else
 constexpr bool kSearch = true;
 #endif
+#ifdef LZ4T_B1_NOPRE
+constexpr bool kPreinsert = false;
+#else
+constexpr bool kPreinsert = true;
+#endif
 #ifdef LZ4T_B1_SOLO_WAVES
 constexpr int kSoloWaves = LZ4T_B1_SOLO_WAVES;
 #else
 constexpr int kSoloWaves = 1;
+#endif
+#ifdef LZ4T_B1_COUNT
+constexpr bool kCount = true;
+// per block b < kCountRows, of the last dict solo launch: the parse
+// warp's reads of the window's history, of its block bytes, and of the
+// row in device memory; the bytes it staged
+constexpr int kCountRows = 1024;
+__device__ unsigned long long g_counts[kCountRows][4];
+#else
+constexpr bool kCount = false;
 #endif
 
 
@@ -139,12 +171,19 @@ __host__ __device__ constexpr size_t table_bytes() {
   return kTableSize * 2 + (kDict ? kTableSize / 8 : 0);
 }
 
-// A solo CTA's dynamic shared memory: the ring, the table, the row and
-// the four counters of the hand-over.
+// A solo CTA's block bytes in shared memory: the row with its zero tail,
+// or dict mode's window with its tail.
+template <bool kDict>
+__host__ __device__ constexpr int solo_bytes() {
+  return kDict ? kWin + 16 : kRowBytes;
+}
+
+// A solo CTA's dynamic shared memory: the ring, the table, the block's
+// bytes and the four counters of the hand-over.
 template <bool kDict>
 constexpr int solo_smem() {
-  return kRing * 16 + static_cast<int>(table_bytes<kDict>()) + kRowBytes +
-         16;
+  return kRing * 16 + static_cast<int>(table_bytes<kDict>()) +
+         solo_bytes<kDict>() + 16;
 }
 static_assert(solo_smem<true>() <= 232448, "over a CTA's shared memory");
 
@@ -158,6 +197,7 @@ __device__ __forceinline__ uint32_t hash4(uint32_t seq) {
 // with a zero tail, so it is read in words whatever cap_n is.
 template <bool kDict, bool kSmem = false>
 struct Source {
+  static constexpr bool has_dict = kDict;
   static constexpr int d0 = kDict ? kDictCap : 0;
   const uint8_t* row;   // the block's row, cap_n bytes
   const uint8_t* dict;  // its right-aligned 64 KB history (dict mode)
@@ -197,6 +237,140 @@ struct Source {
                              (q & 3) * 8);
     }
     return bytes4(q);
+  }
+  // the anchor moves to block byte ax: nothing to stage
+  __device__ __forceinline__ void stage(int, int) const {}
+  // every probe is served: no pair is cut (WinSource: see there)
+  static constexpr bool kCuts = false;
+};
+
+// The dict solo path's bytes: the history and the block share one window
+// of kWin = 65,536 + kLead bytes in shared memory (and a 16-byte tail),
+// logical position q in slot q mod kWin: history byte h in slot h, block
+// byte x < kLead in slot 65536 + x, block byte x >= kLead in history slot
+// x - kLead. No read of the history falls below index anchor_x + 1 (a
+// candidate lies at most max_dist <= 65535 before a probe at or past the
+// anchor, and the back count stops there too), so once the anchor has
+// passed block byte ax, the history slots below ax are free: stage copies
+// block bytes up to ax + kLead into them, in 16-byte cp.async pieces, and
+// takes as served what completed groups carried. The tail holds block
+// bytes [kLead, kLead + 16), so a word read across the wrap needs no
+// branch.
+//
+// Every read of the parse comes from the window, with no branch: the
+// parse is one lone chain, and a fallback in each read (a branch, or
+// loads predicated between the window and the row) lengthens it by a
+// quarter to a half. Only a probe can run past the served part (kNear to
+// kLead past the anchor: in a literal run, which holds the anchor while
+// the probes run on, or at an acceleration whose windows span more); a
+// forward count stages on as it goes. So a window cuts, as though past
+// the block's end, every pair of probes (an even lane and the odd one
+// after it, one step of the serial loop) within kReach of the served
+// part's end: the lanes before them insert as usual, and the parse stops
+// there. The parse warp then stages the row over the window and goes on
+// from the first cut probe as the path did before the window, the row in
+// shared memory and the history in device memory. The output warps read
+// the literals from the row in device memory.
+struct WinSource {
+  static constexpr bool has_dict = true;
+  static constexpr int d0 = kDictCap;
+  static constexpr bool kCuts = true;
+  uint8_t* win;
+  const uint8_t* row;   // the block's row in device memory, cap_n bytes
+  int cap_n;
+  int last_word;        // index of the row's last whole aligned word
+  bool row_words;       // the row may be read as aligned words
+  int served;           // block bytes [0, served) are in their slots
+  int issued;           // ... and [served, issued) on their way
+  int end;              // nothing is staged from here
+  int trigger;          // stage has nothing to do while the anchor is below
+  int reach;            // a probe pair past this logical position is cut
+  // LZ4T_B1_COUNT: reads of the history and of block bytes; bytes staged
+  mutable unsigned n_hist, n_block, n_staged;
+
+  __device__ __forceinline__ static int slot(int q) {
+    return q < kWin ? q : q - kWin;
+  }
+  __device__ __forceinline__ uint32_t row_byte(int i) const {
+    return i < cap_n ? __ldg(row + i) : 0u;
+  }
+  // 4 bytes of the row in device memory at row index i >= 0 (literals)
+  __device__ __forceinline__ uint32_t row4(int i) const {
+    if (!row_words)
+      return row_byte(i) | (row_byte(i + 1) << 8) | (row_byte(i + 2) << 16) |
+             (row_byte(i + 3) << 24);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(row) + (i >> 2);
+    return __funnelshift_r(__ldg(w), __ldg(w + ((i >> 2) < last_word)),
+                           (i & 3) * 8);
+  }
+  __device__ __forceinline__ void count(int q) const {
+    if (kCount) ++(q < d0 ? n_hist : n_block);
+  }
+  __device__ __forceinline__ uint32_t byte(int q) const {
+    count(q);
+    return win[slot(q)];
+  }
+  __device__ __forceinline__ uint32_t read4(int q) const {
+    count(q);
+    const int i = slot(q);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(win) + (i >> 2);
+    return __funnelshift_r(w[0], w[1], (i & 3) * 8);
+  }
+  // a probe pair whose odd probe lies at q is cut (scan)
+  __device__ __forceinline__ bool cut(int q) const { return q > reach; }
+  // the anchor moves to block byte ax, or a forward count has passed it
+  // (the parse warp, once every read below ax is done): block bytes
+  // [issued, min(end, ax + kLead)) go to history slots below ax as a new
+  // group, once there are kStageMin of them. The served frontier is kept
+  // at least kNear past the anchor: where it falls short, the warp waits
+  // for the groups before the newest, or for all of them after a jump of
+  // the anchor past what they carried.
+  __device__ __forceinline__ void stage(int ax, int lane) {
+    if (__builtin_expect(ax < trigger, 1)) return;
+    const int t = min(end, (ax + kLead) & ~15);
+    const int need = min(end, ax + kNear);
+    const int old = issued;
+    if (t > old) {
+      for (int x = old + 16 * lane; x < t; x += 32 * 16) {
+        lz4t::cp_async16(win + x - kLead, row + x);
+        if (kCount) n_staged += 16;
+      }
+      lz4t::cp_async_commit();
+      issued = t;
+    }
+    if (served < need) {
+      if (issued > old && old >= need) {
+        lz4t::cp_async_wait<1>();
+        served = old;
+      } else {
+        lz4t::cp_async_wait<0>();
+        served = issued;
+      }
+      __syncwarp();
+    }
+    retrigger();
+  }
+  // the least anchor at which stage has something to do (the served
+  // frontier falls below kNear past it, or kStageMin bytes can go), and
+  // the cut's bound (none once the block is served to its end)
+  __device__ __forceinline__ void retrigger() {
+    const int a = served >= end ? INT_MAX : served - kNear + 1;
+    const int b = issued + kStageMin > end ? INT_MAX
+                                           : issued + kStageMin - kLead;
+    trigger = min(a, b);
+    reach = served >= end ? INT_MAX : d0 + served - kReach;
+  }
+  // LZ4T_B1_COUNT: block b's figures (the reads and bytes summed over the
+  // warp; left: the parse went over to the row)
+  __device__ __forceinline__ void store_counts(int b, bool left,
+                                               int lane) const {
+#ifdef LZ4T_B1_COUNT
+    const unsigned c[4] = {n_hist, n_block, 0u, n_staged};
+    for (int k = 0; k < 4; ++k) {
+      const unsigned v = __reduce_add_sync(kFull, c[k]);
+      if (lane == 0 && b < kCountRows) g_counts[b][k] = k == 2 ? left : v;
+    }
+#endif
   }
 };
 
@@ -246,14 +420,21 @@ struct Window {
   int next;       // position of the next window's first probe
 };
 
+// The position of the odd probe of lane's pair (lane | 1) in the window
+// whose first probe sits at wp with srch j0 (as load_window places it).
+__device__ __forceinline__ int pair_end(int wp, int j0, int lane) {
+  const int k = lane | 1;
+  return wp + k * (j0 >> kSkipTrigger) + max(0, k - (64 - (j0 & 63)));
+}
+
 // The window whose first probe sits at wp with srch j0. The gap from
 // probe i to probe i + 1 is (srch_i >> 6), srch_i = j0 + i, so lane k's
 // probe sits k * (j0 >> 6) further, plus one for each srch that has
 // passed the next multiple of 64 (k < 64: at most one).
-template <bool kDict, bool kSmem>
-__device__ __forceinline__ Window load_window(const Source<kDict, kSmem>& s,
-                                              const Table<kDict>& tab, int wp,
-                                              int j0, int mflimit,
+template <class S>
+__device__ __forceinline__ Window load_window(const S& s,
+                                              const Table<S::has_dict>& tab,
+                                              int wp, int j0, int mflimit,
                                               int matchlimit, int lane) {
   const int qa = j0 >> kSkipTrigger;
   const int ra = j0 & 63;
@@ -288,9 +469,11 @@ __device__ __forceinline__ Window load_window(const Source<kDict, kSmem>& s,
 // the previous match's tail insert, still to be made (ht kNoSlot: none),
 // and no insert has been made since w was loaded. Every lane returns the
 // same result; on a hit p and cand are the match position and its
-// candidate.
-template <bool kDict, bool kSmem>
-__device__ bool scan(const Source<kDict, kSmem>& s, Table<kDict>& tab,
+// candidate. Where a source cuts probes (S::kCuts), a scan that ends sets
+// cand to -1 at the block's end, or, where it ends at a cut pair, p and
+// cand to the first cut probe's position and srch.
+template <class S>
+__device__ bool scan(const S& s, Table<S::has_dict>& tab,
                      Window w, int& p, int& cand, int& ext, uint32_t ht,
                      int t2, int low, int mflimit, int matchlimit,
                      int max_dist, int lane) {
@@ -327,8 +510,20 @@ __device__ bool scan(const Source<kDict, kSmem>& s, Table<kDict>& tab,
       x = (f ? (__ffs(f) - 1) >> 3 : 4) | (back << 3);
       hit = m == w.seq;
     }
-    const unsigned hits = __ballot_sync(kFull, hit);
-    const unsigned act = __ballot_sync(kFull, w.active);
+    unsigned hits = __ballot_sync(kFull, hit);
+    unsigned act = __ballot_sync(kFull, w.active);
+    if constexpr (S::kCuts) {
+      // the rare window that reaches the source's cut (w.next lies past
+      // every probe): a cut pair reads on, but neither inserts nor takes
+      // a match
+      if (__builtin_expect(s.cut(w.next), 0)) {
+        const int wp = __shfl_sync(kFull, w.q, 0);
+        const unsigned keep =
+            __ballot_sync(kFull, !s.cut(pair_end(wp, w.j0, lane)));
+        hits &= keep;
+        act &= keep;
+      }
+    }
     const unsigned commit =
         hits ? act & ((2u << (__ffs(hits) - 1)) - 1u) : act;
     const bool mine = (commit >> lane) & 1u;
@@ -345,16 +540,26 @@ __device__ bool scan(const Source<kDict, kSmem>& s, Table<kDict>& tab,
       ext = __shfl_sync(kFull, x, f);
       return true;
     }
-    if (act != kFull) return false;  // an even probe passed mflimit
+    if (act != kFull) {  // an even probe passed mflimit, or a pair was cut
+      if constexpr (S::kCuts) {
+        const int f = __ffs(~act) - 1;
+        const int wp = __shfl_sync(kFull, w.q, 0);
+        cand = -1;
+        if (s.cut(pair_end(wp, w.j0, f))) {
+          p = __shfl_sync(kFull, w.q, f);
+          cand = w.j0 + f;
+        }
+      }
+      return false;
+    }
     w = load_window(s, tab, w.next, w.j0 + 32, mflimit, matchlimit, lane);
   }
 }
 
 // Equal bytes going back from (p, c), at most kmax, from k0 on.
-template <bool kDict, bool kSmem>
-__device__ __forceinline__ int back_count(const Source<kDict, kSmem>& s,
-                                          int p, int c, int kmax, int k0,
-                                          int lane) {
+template <class S>
+__device__ __forceinline__ int back_count(const S& s, int p, int c, int kmax,
+                                          int k0, int lane) {
   for (int k = k0; k < kmax; k += 32) {
     const int i = k + lane;
     const bool stop = i >= kmax || s.byte(p - 1 - i) != s.byte(c - 1 - i);
@@ -364,12 +569,15 @@ __device__ __forceinline__ int back_count(const Source<kDict, kSmem>& s,
   return kmax;
 }
 
-// Equal bytes at q1 + i and q2 + i, i < maxn, from c0 on.
-template <bool kDict, bool kSmem>
-__device__ __forceinline__ int fwd_count(const Source<kDict, kSmem>& s,
-                                         int q1, int q2, int maxn, int c0,
-                                         int lane) {
+// Equal bytes at q1 + i and q2 + i, i < maxn, from c0 on. The next
+// anchor lies at q1 + c or past it once c bytes are equal, and the
+// history reads stay above it (q2 >= q1 - 65535), so a window stages on
+// from there and a long match never runs past what it holds.
+template <class S>
+__device__ __forceinline__ int fwd_count(S& s, int q1, int q2, int maxn,
+                                         int c0, int lane) {
   for (int c = c0; c < maxn; c += 128) {
+    if constexpr (S::kCuts) s.stage(q1 + c - S::d0, lane);
     const int ci = c + 4 * lane;
     int good = 0;
     if (ci < maxn) {
@@ -542,9 +750,8 @@ struct Handoff {
 // Output warp k of a solo CTA: writes records k, k + kOutWarps, ... as the
 // parse warp hands them over, until the block's last record is out; the
 // one that takes the final literal run sets the block's csize and trail.
-template <bool kDict>
-__device__ void write_records(const Source<kDict, true>& s,
-                              const int4* ring, int* ctl, int k,
+template <class S>
+__device__ void write_records(const S& s, const int4* ring, int* ctl, int k,
                               const Sink& o, int* csize, int* trail,
                               int lane) {
   for (int i = k;; i += kOutWarps) {
@@ -572,21 +779,34 @@ __device__ void write_records(const Source<kDict, true>& s,
   }
 }
 
-// Parse one block (the whole warp), its sequences going to `out`.
-template <bool kDict, bool kSmem, class Out>
-__device__ void parse_block(const Source<kDict, kSmem>& s, Table<kDict>& tab,
-                            int n, int low, Out& out, int accel,
-                            int max_dist, int lane) {
-  constexpr int d0 = Source<kDict>::d0;
+// Where a parse goes on from: its anchor, and the first probe (position,
+// srch) of its next scan, which has no tail insert pending.
+struct Resume {
+  int anchor;
+  int wp;
+  int j0;
+};
+
+// Parse one block (the whole warp), its sequences going to `out`: from
+// its start, or with r from where r says. Where the source cuts a probe
+// pair (WinSource) the parse stops there: r (never null then) holds
+// where it goes on from with another source, and it returns false; else
+// true, the block done.
+template <class S, class Out>
+__device__ bool parse_block(S& s, Table<S::has_dict>& tab, int n, int low,
+                            Out& out, int accel, int max_dist, int lane,
+                            Resume* r = nullptr) {
+  constexpr int d0 = S::d0;
   const int mflimit = d0 + n - kMfLimit;          // last match start
   const int matchlimit = d0 + n - kLastLiterals;  // match bytes end here
   const int accel0 = accel << kSkipTrigger;
-  int anchor = d0;
-  int p = d0;
+  int anchor = r ? r->anchor : d0;
+  int p = anchor;
   int cand = 0;
   int ext = 0;
   bool hit = scan(s, tab,
-                  load_window(s, tab, p, accel0, mflimit, matchlimit, lane),
+                  load_window(s, tab, r ? r->wp : p, r ? r->j0 : accel0,
+                              mflimit, matchlimit, lane),
                   p, cand, ext, kNoSlot, 0, low, mflimit, matchlimit,
                   max_dist, lane);
   while (hit) {
@@ -622,14 +842,22 @@ __device__ void parse_block(const Source<kDict, kSmem>& s, Table<kDict>& tab,
     const Window w =
         load_window(s, tab, next, accel0, mflimit, matchlimit, lane);
     const uint32_t ht = hash4(s.read4(t2));
+    s.stage(next - d0, lane);  // the history below the new anchor is free
     out.sequence(s, anchor - d0, p2 - anchor, offset, ml - kMinMatch, lane);
     anchor = next;
     p = anchor;
     hit = scan(s, tab, w, p, cand, ext, ht, t2, low, mflimit, matchlimit,
                max_dist, lane);
   }
+  if constexpr (S::kCuts) {
+    if (cand >= 0) {
+      *r = Resume{anchor, p, cand};
+      return false;
+    }
+  }
   // the final literal run
   out.last(s, anchor - d0, max(d0 + n - anchor, 0), lane);
+  return true;
 }
 
 // One warp per CTA; CTA c owns table c of `tables` and encodes blocks c,
@@ -662,7 +890,7 @@ encode_kernel(const uint8_t* __restrict__ src, const int* __restrict__ lens,
          i += 32)
       z[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncwarp();
-    if (kDict) {  // history pre-insert, largest position wins
+    if (kDict && kPreinsert) {  // history pre-insert, largest position wins
       const long long step = 32LL * dict_stride;
       for (long long q = low + static_cast<long long>(lane) * dict_stride;
            q < d0; q += step)
@@ -677,9 +905,92 @@ encode_kernel(const uint8_t* __restrict__ src, const int* __restrict__ lens,
   }
 }
 
+// A dict solo CTA's table cleared (all threads).
+__device__ __forceinline__ void clear_table(uint8_t* tmem, int tid) {
+  uint4* z = reinterpret_cast<uint4*>(tmem);
+  for (int i = tid; i < static_cast<int>(table_bytes<true>() / 16);
+       i += kSoloThreads)
+    z[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// A dict solo CTA's start of a block (all threads): the table cleared,
+// the ring's counters reset, the history [low, 65536) and block bytes
+// [0, kLead + 16) staged to the window (cp.async where 16-byte aligned),
+// zeros past a shorter row (as the parse reads past any row), then one
+// barrier; returns the block's source (whose staging needs row16: a row
+// in 16-byte pieces).
+__device__ __forceinline__ WinSource window_block(
+    uint8_t* tmem, uint8_t* win, int* ctl, const uint8_t* row,
+    const uint8_t* hist, int n, int low, int cap_n, bool row_words,
+    bool row16, int tid) {
+  const int head = min(cap_n, kLead + 16);
+  if ((reinterpret_cast<uintptr_t>(hist) & 15) == 0) {
+    for (int i = (low >> 4) + tid; i < kDictCap / 16; i += kSoloThreads)
+      lz4t::cp_async16(win + 16 * i, hist + 16 * i);
+  } else {
+    for (int i = low + tid; i < kDictCap; i += kSoloThreads)
+      win[i] = __ldg(hist + i);
+  }
+  if (row16) {
+    for (int i = tid; i < head / 16; i += kSoloThreads)
+      lz4t::cp_async16(win + kDictCap + 16 * i, row + 16 * i);
+  } else {
+    for (int i = tid; i < head; i += kSoloThreads)
+      win[kDictCap + i] = __ldg(row + i);
+  }
+  lz4t::cp_async_commit();
+  for (int i = kDictCap + head + tid; i < kWin + 16; i += kSoloThreads)
+    win[i] = 0;
+  clear_table(tmem, tid);
+  if (tid <= kOutWarps) ctl[tid] = max(tid - 1, 0);
+  lz4t::cp_async_wait<0>();
+  __syncthreads();
+  WinSource s{win, row, cap_n, cap_n / 4 - 1, row_words, kLead, kLead,
+              min((n + 15) & ~15, cap_n), 0, 0, 0, 0, 0};
+  s.retrigger();
+  return s;
+}
+
+// The history pre-insert of a dict solo CTA (all threads), largest
+// position wins; then one barrier.
+template <class S>
+__device__ __forceinline__ void preinsert(const S& s, Table<true>& tab,
+                                          int low, int dict_stride,
+                                          int tid) {
+  if (!kPreinsert) return;
+  const long long step = static_cast<long long>(kSoloThreads) * dict_stride;
+  for (long long q = low + static_cast<long long>(tid) * dict_stride;
+       q < kDictCap; q += step)
+    tab.put_max(hash4(s.read4(static_cast<int>(q))),
+                static_cast<uint32_t>(q));
+  __syncthreads();
+}
+
+// The parse warp's copy of a dict block's row over its window, with a
+// zero tail: the rest of the parse reads the row there and the history in
+// device memory (the solo path's reads before the window).
+__device__ __forceinline__ void row_over_window(uint8_t* win,
+                                                const uint8_t* row,
+                                                int cap_n, bool row16,
+                                                int lane) {
+  lz4t::cp_async_wait<0>();  // no staged piece lands after the row
+  if (row16) {
+    for (int i = lane; i < cap_n / 16; i += 32)
+      lz4t::cp_async16(win + 16 * i, row + 16 * i);
+    lz4t::cp_async_commit();
+  } else {
+    for (int i = lane; i < cap_n; i += 32) win[i] = __ldg(row + i);
+  }
+  for (int i = cap_n + lane; i < ((cap_n + 15) & ~15) + 16; i += 32)
+    win[i] = 0;
+  lz4t::cp_async_wait<0>();
+  __syncwarp();
+}
+
 // The solo path: one CTA of kSoloThreads a block (blocks c, c + gridDim.x,
-// ...), everything but the history in shared memory (solo_smem: the ring,
-// the table, the row, the counters). Warp 0 parses, warps 1.. write.
+// ...), the block's bytes and its table in shared memory (solo_smem: the
+// ring, the table, the row or dict mode's window, the counters). Warp 0
+// parses, warps 1.. write.
 template <bool kDict>
 __global__ void __launch_bounds__(kSoloThreads, 1)
 encode_solo_kernel(const uint8_t* __restrict__ src,
@@ -689,61 +1000,85 @@ encode_solo_kernel(const uint8_t* __restrict__ src,
                    uint8_t* __restrict__ out, int* __restrict__ csizes,
                    int* __restrict__ trailing, int B, int cap_n, int out_w,
                    int accel, int dict_stride, int max_dist) {
-  constexpr int d0 = Source<kDict>::d0;
   extern __shared__ __align__(16) unsigned char smem[];
   int4* ring = reinterpret_cast<int4*>(smem);
   uint8_t* tmem = smem + kRing * sizeof(int4);
   uint8_t* rowb = tmem + table_bytes<kDict>();
-  int* ctl = reinterpret_cast<int*>(rowb + kRowBytes);
+  int* ctl = reinterpret_cast<int*>(rowb + solo_bytes<kDict>());
   Table<kDict> tab{reinterpret_cast<uint16_t*>(tmem),
                    reinterpret_cast<uint32_t*>(tmem + kTableSize * 2)};
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const bool dict_words = (reinterpret_cast<uintptr_t>(dict) & 3) == 0;
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
-    const int n = min(max(lens[b], 0), cap_n);
-    const int low = kDict ? d0 - min(dict_lens[b], d0) : 0;
-    const uint8_t* row = src + static_cast<size_t>(b) * cap_n;
-    uint4* z = reinterpret_cast<uint4*>(tmem);
-    for (int i = tid; i < static_cast<int>(table_bytes<kDict>() / 16);
-         i += kSoloThreads)
-      z[i] = make_uint4(0u, 0u, 0u, 0u);
-    // the row, then zeros to a 16-byte boundary and 16 bytes past it
-    if (((reinterpret_cast<uintptr_t>(row) | cap_n) & 15) == 0) {
-      const uint4* g = reinterpret_cast<const uint4*>(row);
-      uint4* d = reinterpret_cast<uint4*>(rowb);
-#pragma unroll 8
-      for (int i = tid; i < cap_n / 16; i += kSoloThreads) d[i] = __ldg(g + i);
-    } else {
-      for (int i = tid; i < cap_n; i += kSoloThreads) rowb[i] = __ldg(row + i);
-    }
-    for (int i = cap_n + tid; i < ((cap_n + 15) & ~15) + 16;
-         i += kSoloThreads)
-      rowb[i] = 0;
-    if (tid <= kOutWarps) ctl[tid] = max(tid - 1, 0);
-    __syncthreads();
-    const Source<kDict, true> s{
-        rowb, kDict ? dict + static_cast<size_t>(b) * kDictCap : nullptr,
-        cap_n, 0, true, dict_words};
-    if (kDict) {  // history pre-insert on every warp, largest position wins
-      const long long step = static_cast<long long>(kSoloThreads) *
-                             dict_stride;
-      for (long long q = low + static_cast<long long>(tid) * dict_stride;
-           q < d0; q += step)
-        tab.put_max(hash4(s.read4(static_cast<int>(q))),
-                    static_cast<uint32_t>(q));
+  if constexpr (kDict) {
+    const bool row_words =
+        (cap_n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0;
+    const bool dict_words = (reinterpret_cast<uintptr_t>(dict) & 3) == 0;
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      const int n = min(max(lens[b], 0), cap_n);
+      const int low = kDictCap - min(dict_lens[b], kDictCap);
+      const uint8_t* row = src + static_cast<size_t>(b) * cap_n;
+      const uint8_t* hist = dict + static_cast<size_t>(b) * kDictCap;
+      const bool row16 =
+          ((reinterpret_cast<uintptr_t>(row) | cap_n) & 15) == 0;
+      WinSource s = window_block(tmem, rowb, ctl, row, hist, n, low, cap_n,
+                                 row_words, row16, tid);
+      preinsert(s, tab, low, dict_stride, tid);
+      if (warp == 0) {
+        Handoff h{ring, ctl, 0, 0, kRing};
+        Resume r{kDictCap, kDictCap, accel << kSkipTrigger};
+        s.n_hist = 0;  // the parse's reads alone
+        const bool left = !row16 || !parse_block(s, tab, n, low, h, accel,
+                                                 max_dist, lane, &r);
+        s.store_counts(b, left, lane);
+        if (left) {  // the rest from the row, the history in device memory
+          row_over_window(rowb, row, cap_n, row16, lane);
+          Source<true, true> g{rowb, hist, cap_n, 0, true, dict_words};
+          parse_block(g, tab, n, low, h, accel, max_dist, lane, &r);
+        }
+        lz4t::cp_async_wait<0>();  // nothing lands in the next block's
+      } else {
+        write_records(s, ring, ctl, warp - 1,
+                      Sink{out + static_cast<size_t>(b) * out_w, out_w},
+                      csizes + b, trailing + b, lane);
+      }
       __syncthreads();
     }
-    if (warp == 0) {
-      Handoff h{ring, ctl, 0, 0, kRing};
-      parse_block(s, tab, n, low, h, accel, max_dist, lane);
-    } else {
-      write_records(s, ring, ctl, warp - 1,
-                    Sink{out + static_cast<size_t>(b) * out_w, out_w},
-                    csizes + b, trailing + b, lane);
+  } else {
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      const int n = min(max(lens[b], 0), cap_n);
+      const uint8_t* row = src + static_cast<size_t>(b) * cap_n;
+      uint4* z = reinterpret_cast<uint4*>(tmem);
+      for (int i = tid; i < static_cast<int>(table_bytes<kDict>() / 16);
+           i += kSoloThreads)
+        z[i] = make_uint4(0u, 0u, 0u, 0u);
+      // the row, then zeros to a 16-byte boundary and 16 bytes past it
+      if (((reinterpret_cast<uintptr_t>(row) | cap_n) & 15) == 0) {
+        const uint4* g = reinterpret_cast<const uint4*>(row);
+        uint4* d = reinterpret_cast<uint4*>(rowb);
+#pragma unroll 8
+        for (int i = tid; i < cap_n / 16; i += kSoloThreads)
+          d[i] = __ldg(g + i);
+      } else {
+        for (int i = tid; i < cap_n; i += kSoloThreads)
+          rowb[i] = __ldg(row + i);
+      }
+      for (int i = cap_n + tid; i < ((cap_n + 15) & ~15) + 16;
+           i += kSoloThreads)
+        rowb[i] = 0;
+      if (tid <= kOutWarps) ctl[tid] = max(tid - 1, 0);
+      __syncthreads();
+      const Source<false, true> s{rowb, nullptr, cap_n, 0, true, false};
+      if (warp == 0) {
+        Handoff h{ring, ctl, 0, 0, kRing};
+        parse_block(s, tab, n, 0, h, accel, max_dist, lane);
+      } else {
+        write_records(s, ring, ctl, warp - 1,
+                      Sink{out + static_cast<size_t>(b) * out_w, out_w},
+                      csizes + b, trailing + b, lane);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
@@ -836,6 +1171,15 @@ extern "C" int lz4t_encode_serial_plan(int B, int has_dict, int* solo,
   return static_cast<int>(e);
 }
 
+// The solo kernel's dynamic shared memory (has_dict: dict mode's) and
+// the threads of a solo CTA (solo 1) or a device-table one (solo 0).
+extern "C" int lz4t_encode_serial_smem(int has_dict) {
+  return has_dict ? solo_smem<true>() : solo_smem<false>();
+}
+extern "C" int lz4t_encode_serial_threads(int solo) {
+  return solo ? kSoloThreads : 32;
+}
+
 // Encode B blocks; returns the launch's cudaError_t (0 on success).
 extern "C" int lz4t_encode_serial(const void* src, const void* lens,
                                   const void* dict, const void* dict_lens,
@@ -851,3 +1195,15 @@ extern "C" int lz4t_encode_serial(const void* src, const void* lens,
                                   trailing, B, cap_n, out_w, accel,
                                   dict_stride, max_dist, st);
 }
+
+#ifdef LZ4T_B1_COUNT
+// The counting build's figures of its last dict solo launch, rows
+// (at most kCountRows) of {history reads, block reads from the window,
+// reads of the row in device memory, bytes staged} to out on the host;
+// returns the cudaError_t.
+extern "C" int lz4t_encode_serial_counts(unsigned long long* out, int rows) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_counts, static_cast<size_t>(min(rows, kCountRows)) *
+                         sizeof(g_counts[0])));
+}
+#endif

@@ -1,5 +1,7 @@
 // Shared-memory mbarriers and Hopper's 1-D bulk copies (cp.async.bulk)
-// from global into shared memory (xxh32.cu, probe_gather.cu).
+// from global into shared memory (xxh32.cu, probe_gather.cu), and the
+// 16-byte cp.async copies a thread tracks in commit groups
+// (encode_serial.cu).
 #pragma once
 
 #include <cstdint>
@@ -53,6 +55,27 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// 16 bytes from global to shared memory, both 16-byte aligned, in the
+// thread's current cp.async group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `kPending` of the thread's committed groups are in
+// flight; the copies of the others have landed (for this thread: other
+// threads see them after a barrier)
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
 }  // namespace lz4t

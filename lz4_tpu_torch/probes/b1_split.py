@@ -3,7 +3,7 @@
     python -m lz4_tpu_torch.probes.b1_split [--mb 48] [--runs 5]
         [--variant NAME=DEFINE[,DEFINE...] ...]
         [--corpus NAME --blocks 64[,N...] [--batches 4] [--seed 1]
-         [--linked]]
+         [--linked [--far one|all [--far-fill zero|random]]]]
 
 Builds the kernel as it ships and three variants of it, each with a `-D`
 define, and times each on the main-path batch (the real-file corpus in
@@ -44,7 +44,19 @@ above are built a second time with `LZ4T_B1_SOLO_WAVES=0`
 kernel's two launch shapes are timed at the same B and held to each
 other (`LZ4T_B1_SOLO_WAVES=2` as a `--variant` takes the solo path up to
 two blocks an SM: the crossover); every build reports the path its
-launches took (`solo` or `tables`, its `lz4t_encode_serial_plan`).
+launches took (`solo` or `tables`, its `lz4t_encode_serial_plan`). In
+dict mode two more builds run: `nopre` (`LZ4T_B1_NOPRE`, no history
+pre-insert: full - nopre is the pre-insert's cost; the stream is not
+valid), timed beside `full`, and `count` (`LZ4T_B1_COUNT`), held to
+`full` byte for byte, whose figures of a solo launch (`counts_dict`: the
+parse warp's reads of the window's history and of its block bytes, the
+blocks whose parse left the window, going on with the row staged and
+the history in device memory, and the bytes staged) say how far the
+window served the search. `--far one` (`all`) plants a stretch of
+FAR_LEN bytes at FAR_AT in the first block of each batch (in every
+block): zeros, one match, or random bytes from the seed, one literal
+run, each longer than the window's lead (the literal run's block leaves
+the window).
 
 Prints one JSON line. Needs one CUDA GPU and
 nvcc; it is the port's counterpart of the TPU probe
@@ -70,6 +82,11 @@ BLOCK = 65536
 VARIANTS = {"full": (), "nolits": ("LZ4T_B1_NOLITS",),
             "noemit": ("LZ4T_B1_NOEMIT",), "nosrch": ("LZ4T_B1_NOSRCH",)}
 TABLES = "LZ4T_B1_SOLO_WAVES=0"
+#: dict mode's extra builds in the batch mode
+DICT_BUILDS = {"nopre": ("LZ4T_B1_NOPRE",), "count": ("LZ4T_B1_COUNT",)}
+COUNTS = ("hist_reads", "block_reads", "left", "staged")
+#: `--far`: where the stretch lies in a block, and its length
+FAR_AT, FAR_LEN = 32768, 12288
 
 
 def _card() -> str:
@@ -142,6 +159,26 @@ def path_of(defs, B: int, has_dict: bool) -> str:
     return "solo" if solo.value else "tables"
 
 
+def read_counts(defs, B: int, per_block: bool = False) -> dict:
+    """The counting build's figures of its last dict solo launch of B
+    blocks (COUNTS), summed over the blocks; with per_block, also
+    `blocks`: each block's four figures."""
+    fn = ctypes.CDLL(_build.library_path(
+        "encode_serial", defs)).lz4t_encode_serial_counts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * (4 * B))()
+    torch.cuda.synchronize()
+    rc = fn(buf, B)
+    if rc != 0:
+        raise RuntimeError(f"B1 counts failed: CUDA error {rc}")
+    out = {k: sum(buf[4 * i + j] for i in range(B))
+           for j, k in enumerate(COUNTS)}
+    if per_block:
+        out["blocks"] = [tuple(buf[4 * i: 4 * i + 4]) for i in range(B)]
+    return out
+
+
 def corpus_batches(name: str, blocks: int, batches: int, seed: int,
                    history: bool = False, device="cuda",
                    linked: bool = False):
@@ -178,6 +215,22 @@ def corpus_batches(name: str, blocks: int, batches: int, seed: int,
     return out
 
 
+def plant_far(batches, blocks: str, fill: str, seed: int) -> None:
+    """`--far`: FAR_LEN bytes at FAR_AT of the first block of each batch
+    (blocks "one") or of every block ("all"), zeros or random bytes from
+    `seed`, in place."""
+    g = torch.Generator().manual_seed(seed)
+    for src, *_ in batches:
+        rows = src[:1] if blocks == "one" else src
+        span = slice(FAR_AT, FAR_AT + FAR_LEN)
+        if fill == "zero":
+            rows[:, span] = 0
+        else:
+            rows[:, span] = torch.randint(
+                0, 256, (rows.shape[0], FAR_LEN), generator=g,
+                dtype=torch.uint8).to(src.device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=int, default=48)
@@ -189,9 +242,14 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--linked", action="store_true")
+    ap.add_argument("--far", choices=("one", "all"), default=None)
+    ap.add_argument("--far-fill", choices=("zero", "random"),
+                    default="zero")
     args = ap.parse_args(argv)
     if args.linked and not args.corpus:
         ap.error("--linked needs --corpus")
+    if args.far and not args.linked:
+        ap.error("--far needs --linked")
     if not torch.cuda.is_available():
         print("b1_split: no CUDA device", file=sys.stderr)
         return 2
@@ -243,30 +301,38 @@ def main_batches(args, builds, extra) -> int:
     """The batch mode (`--corpus`): each batch of each size timed on every
     build, the four of `VARIANTS` on both paths."""
     builds = {**builds, **{f"{k}_tables": (TABLES,) + d
-                           for k, d in VARIANTS.items()}}
+                           for k, d in VARIANTS.items()}, **DICT_BUILDS}
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda d: _build.build(["encode_serial"], d),
                     builds.values()))
-    checked = {"full_tables", *extra}
+    checked = {"full_tables", "count", *extra}
     runs, same, mean = [], {}, {}
     for B in (int(x) for x in args.blocks.split(",")):
         batches = corpus_batches(args.corpus, B, args.batches, args.seed,
                                  history=True, linked=args.linked)
+        if args.far:
+            plant_far(batches, args.far, args.far_fill, args.seed)
         for k, (src, lens, dic, dlens) in enumerate(batches):
             row = {"blocks": B, "batch": k, "ms": {}, "ms_dict": {},
                    "path": {}, "path_dict": {}}
             for dict_mode in (False, True):
                 ref = None
                 for name, defs in builds.items():
-                    if dict_mode and name not in ("full", *checked):
+                    if (name not in ("full", "nopre", *checked)
+                            if dict_mode else name in DICT_BUILDS):
                         continue
                     batch = (src, lens, dic, dlens) if dict_mode else (
                         src, lens, None, None)
                     run, outs = _launcher(_build.load("encode_serial", defs),
                                           *batch)
                     sfx = "_dict" if dict_mode else ""
-                    row["ms" + sfx][name] = _best_ms(run, args.runs)
                     row["path" + sfx][name] = path_of(defs, B, dict_mode)
+                    if name == "count":
+                        run()
+                        if row["path_dict"][name] == "solo":
+                            row["counts_dict"] = read_counts(defs, B)
+                    else:
+                        row["ms" + sfx][name] = _best_ms(run, args.runs)
                     if name == "full":
                         ref = outs
                         row["csize_sum" + sfx] = int(outs[1].sum())
@@ -277,10 +343,16 @@ def main_batches(args, builds, extra) -> int:
             rows = [r[key] for r in runs if r["blocks"] == B]
             mean[f"{key}_B{B}"] = {n: sum(r[n] for r in rows) / len(rows)
                                    for n in rows[0]}
+        counted = [r["counts_dict"] for r in runs
+                   if r["blocks"] == B and "counts_dict" in r]
+        if counted:
+            mean[f"counts_dict_B{B}"] = {
+                k: sum(c[k] for c in counted) for k in COUNTS}
     print(json.dumps({
         "probe": "b1_split", "card": _card(),
         "device": torch.cuda.get_device_name(0), "corpus": args.corpus,
-        "linked": args.linked, "seed": args.seed, "block": BLOCK,
+        "linked": args.linked, "far": args.far and [args.far, args.far_fill],
+        "seed": args.seed, "block": BLOCK,
         "mean_ms": mean,
         "same_as_full": same, "runs": runs,
         "ptxas": {n: _regs(d) for n, d in builds.items()}}), flush=True)

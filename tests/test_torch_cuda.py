@@ -143,9 +143,26 @@ def test_b1_more_than_64_blocks(cuda):
     assert rev[::-1] == fwd
 
 
+def _linked(make, n, seed):
+    """(block, history): n bytes that go on from their 64 KB history, as
+    the next block of a linked frame does."""
+    data = make(65536 + n, seed)
+    return data[65536:], data[:65536]
+
+
 @functools.lru_cache(maxsize=1)
 def _b1_cases():
-    """(blocks, prefixes, cap, kwargs) for `test_b1_solo_and_device_tables`."""
+    """(blocks, prefixes, cap, kwargs) for `test_b1_solo_and_device_tables`.
+    The `window_` cases are the dict solo path's window (CPU model:
+    tests/test_torch_encode_lockstep.py): linked rows twice the lead with
+    a full, a partial and an empty history; a row equal to its history
+    and one shifted by a byte (offset 65,535, the lowest history byte the
+    window must hold); zero rows, whose one match runs past the lead (the
+    forward count stages on), and random ones, whose probes run past it
+    (the window parse stops, and the kernel parses them again with the
+    row staged); linked rows with a 12 KB run of zeros or of random bytes
+    in the middle, beside one without; rows of an odd width, which are
+    not staged."""
     rng = np.random.default_rng(81)
     rand = _random_blocks(rng, 10, 8192)
     hist = gen_text(70000, seed=82)
@@ -160,6 +177,16 @@ def _b1_cases():
     coll_hist = [walk, walk[-5000:], None, walk, walk[-1:]]
     full = [gen_text(65536, seed=86), gen_buffer(65536, 0.7, seed=87),
             bytes(65536), rng.bytes(65536)]
+    text, text_hist = _linked(lambda n, s: gen_text(n, seed=s), 16384, 88)
+    mixed, mixed_hist = _linked(lambda n, s: gen_buffer(n, 0.7, seed=s),
+                                16384, 89)
+    linked = [text, mixed, gen_text(16384, seed=90)]
+    linked_hist = [text_hist, mixed_hist[-3000:], None]
+    edge = rng.bytes(65536)
+    mid, mid_hist = _linked(lambda n, s: gen_text(n, seed=s), 65536, 93)
+    far = [mid[:32768] + fill + mid[32768 + 12288:]
+           for fill in (bytes(12288), rng.bytes(12288))] + [mid]
+    odd_text, odd_hist = _linked(lambda n, s: gen_text(n, seed=s), 20003, 91)
     return {
         "random": (rand, None, 8192, {}),
         "random_max_acceleration": (rand, None, 8192,
@@ -178,6 +205,19 @@ def _b1_cases():
         "collisions_dict": (coll, coll_hist, 16384, {}),
         "full_rows": (full, None, 65536, {}),
         "full_rows_dict": (full, [hist, None, hist[-100:], hist], 65536, {}),
+        "window_linked": (linked, linked_hist, 16384, {}),
+        "window_linked_max_dist_stride_1": (
+            linked, linked_hist, 16384,
+            {"max_dist": 2000, "dict_stride": 1, "acceleration": 8}),
+        "window_linked_max_acceleration": (linked, linked_hist, 16384,
+                                           {"acceleration": 65537}),
+        "window_history_edges": ([edge, edge[1:] + b"x"], [edge, edge],
+                                 65536, {"dict_stride": 1}),
+        "window_zero_and_random": (
+            [bytes(65536), bytes(65536), rng.bytes(65536)],
+            [bytes(65536), None, rng.bytes(65536)], 65536, {}),
+        "window_odd_width": ([odd_text], [odd_hist], 20003, {}),
+        "window_far_midblock": (far, [mid_hist] * 3, 65536, {}),
     }
 
 
@@ -186,19 +226,22 @@ def _b1_cases():
     "dict_max_acceleration", "max_dist", "dict_max_dist_stride_1",
     "odd_width", "odd_width_dict", "collisions",
     "collisions_max_acceleration", "collisions_dict", "full_rows",
-    "full_rows_dict"])
+    "full_rows_dict", "window_linked", "window_linked_max_dist_stride_1",
+    "window_linked_max_acceleration", "window_history_edges",
+    "window_zero_and_random", "window_odd_width", "window_far_midblock"])
 def test_b1_solo_and_device_tables(cuda, case):
     """B1's two launch shapes, byte for byte against the plain version:
-    calls of 1, len(blocks) and SMs blocks run solo (a whole SM a block),
-    SMs + 1 on the device tables; row r holds block r mod len(blocks).
-    `smem_launches` rises by one exactly on the solo calls."""
+    calls of 1, len(blocks), 64 and SMs blocks run solo (a whole SM a
+    block), SMs + 1 on the device tables; row r holds block r mod
+    len(blocks). `smem_launches` rises by one exactly on the solo
+    calls."""
     blocks, prefixes, cap, kw = _b1_cases()[case]
     has_dict = prefixes is not None
     arrays = pack_blocks(blocks, prefixes, cap=cap, with_dict=has_dict)
     po, pc, pt = encode_cuda.encode_blocks_plain(
         *to_device_batch(*arrays, device="cpu"), cap_n=cap, **kw)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for B in (1, len(blocks), sms, sms + 1):
+    for B in (1, len(blocks), 64, sms, sms + 1):
         idx = np.arange(B) % len(blocks)
         rows = [None if a is None else a[idx] for a in arrays]
         solo, card_sms = encode_cuda.plan(B, has_dict)
@@ -256,6 +299,113 @@ def test_b1_linked_cell_batch(cuda):
         assert po[j, : pc[j]].numpy().tobytes() == linked[i], i
         joined = reference_linked.join(prefixes[i], linked[i])
         assert reference.decode_block(joined, 131072) == host[i].tobytes()
+
+
+def test_b1_count_build_on_the_linked_cell_batch(cuda):
+    """The counting build (`LZ4T_B1_COUNT`, as `probes/b1_split.py` runs
+    it) on `test_b1_linked_cell_batch`'s 64 rows: its streams are the
+    shipping kernel's, the window served every read of the parse (no
+    block left it), every block staged its bytes past the lead, and some
+    reads were of the history. On four of
+    the rows its figures are the CPU model's (`LockstepModel`), read for
+    read."""
+    from benchmark import corpus
+    from lz4_tpu_torch.probes import b1_split
+    spec = corpus.load_spec("silesia-like")
+    data, _ = corpus.make_corpus(spec, 2650000017, spec["stratum_blocks"],
+                                 131072, cuda)
+    src = data[:64, 65536:].contiguous()
+    hist = data[:64, :65536].contiguous()
+    del data
+    lens = torch.full((64,), 65536, dtype=torch.int32, device=cuda)
+    count = b1_split.DICT_BUILDS["count"]
+    _build.build(["encode_serial"], count)
+    assert b1_split.path_of(count, 64, True) == "solo"
+    run, outs = b1_split._launcher(_build.load("encode_serial", count), src,
+                                   lens, hist, lens)
+    run()
+    counts = b1_split.read_counts(count, 64, per_block=True)
+    ref = encode_cuda.encode_blocks(src, lens, hist, lens, cap_n=65536)
+    assert b1_split._same(outs, ref)
+    assert counts["left"] == 0 and counts["hist_reads"] > 0
+    assert counts["staged"] == 64 * (65536 - encode_cuda.LEAD)
+    for i in (0, 21, 42, 63):
+        *_, m = encode_cuda.encode_blocks_lockstep(
+            src[i: i + 1].cpu(), lens[:1].cpu(), hist[i: i + 1].cpu(),
+            lens[:1].cpu(), cap_n=65536)
+        assert counts["blocks"][i] == (m.hist_reads, m.block_reads,
+                                       m.left, m.staged), i
+
+
+@pytest.mark.parametrize("fill", ["zero", "random"])
+def test_b1_count_build_leaves_the_window_on_a_literal_run(cuda, fill):
+    """`test_b1_linked_cell_batch`'s 64 rows with a 12 KB run of zeros or
+    of random bytes planted in the middle of the first block
+    (`b1_split --far one`): the counting build's streams are the shipping
+    kernel's, and the block's equals the plain version. The zeros' match
+    runs past the lead, but its forward count stages on, so the block
+    stays in the window; the random bytes' literal run takes the probes
+    to the served part's end, so that block alone leaves the window and
+    goes on with its row. The block's figures are the CPU model's, read
+    for read, up to where it leaves."""
+    from benchmark import corpus
+    from lz4_tpu_torch.probes import b1_split
+    spec = corpus.load_spec("silesia-like")
+    data, _ = corpus.make_corpus(spec, 2650000017, spec["stratum_blocks"],
+                                 131072, cuda)
+    src = data[:64, 65536:].contiguous()
+    hist = data[:64, :65536].contiguous()
+    del data
+    lens = torch.full((64,), 65536, dtype=torch.int32, device=cuda)
+    b1_split.plant_far([(src,)], "one", fill, 7)
+    count = b1_split.DICT_BUILDS["count"]
+    _build.build(["encode_serial"], count)
+    run, outs = b1_split._launcher(_build.load("encode_serial", count), src,
+                                   lens, hist, lens)
+    run()
+    counts = b1_split.read_counts(count, 64, per_block=True)
+    ref = encode_cuda.encode_blocks(src, lens, hist, lens, cap_n=65536)
+    assert b1_split._same(outs, ref)
+    assert counts["left"] == counts["blocks"][0][2] == (fill == "random")
+    one = [x[:1].cpu() for x in (src, lens, hist, lens)]
+    po, pc, pt = encode_cuda.encode_blocks_plain(*one, cap_n=65536)
+    n = int(pc[0])
+    assert (int(ref[1][0]), int(ref[2][0])) == (n, int(pt[0]))
+    assert torch.equal(ref[0][0, :n].cpu(), po[0, :n])
+    *_, m = encode_cuda.encode_blocks_lockstep(*one, cap_n=65536)
+    assert counts["blocks"][0] == (m.hist_reads, m.block_reads, m.left,
+                                   m.staged)
+
+
+def test_b1_resources_as_chip_smoke_reads_them(cuda):
+    """B1's kernels as `chip_smoke.py` reports them: the no-dict solo
+    kernel keeps its 72 registers and 213,024 bytes of shared memory, the
+    dict solo kernel's window fits a CTA's 232,448, and no kernel
+    spills."""
+    import chip_smoke
+    _build.build(["encode_serial"])
+    k = chip_smoke.b1_resources()["kernels"]
+    assert set(k) == {"solo", "solo dict", "tables", "tables dict"}
+    assert (k["solo"]["registers"], k["solo"]["dynamic_smem"]) == (72,
+                                                                    213024)
+    assert k["solo dict"]["dynamic_smem"] == 229408 <= 232448
+    assert [e["spill_stores"] for e in k.values()] == [0] * 4
+
+
+def test_b1_window_on_a_4mb_block(cuda):
+    """A 4 MB block through the engine's big-block route: 64 linked 64 KB
+    segments in one dict call, which runs solo on the window, equal to
+    the CPU backend's plain version and decoding to the block."""
+    data = b"".join(gen_text(1 << 20, seed=92 + k) if k % 2 else
+                    gen_buffer(1 << 20, 0.6, seed=92 + k) for k in range(4))
+    gpu, cpu = TorchBackend(cuda), TorchBackend("cpu")
+    n0, s0, d0 = (encode_cuda.launches, encode_cuda.smem_launches,
+                  encode_cuda.dict_launches)
+    big = gpu.compress_batch([data])
+    assert (encode_cuda.launches, encode_cuda.smem_launches,
+            encode_cuda.dict_launches) == (n0 + 1, s0 + 1, d0 + 1)
+    assert big == cpu.compress_batch([data])
+    assert gpu.decompress_batch(big, [4 << 20]) == [data]
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -11,7 +11,19 @@ kernel in interpret mode. The blocks include ones built so that several
 probes of one window share a hash slot (`gen_hash_walk`,
 `gen_slot_words`: numpy searches of 4-byte sequences with equal 16-bit
 Knuth hashes, from a seed). Tolerance: exact.
+
+With a history the model also follows the dict solo path's window in
+shared memory: it asserts on every read that none of the history lies
+below the anchor's block index + 1 (what lets a history slot take a
+block byte once the anchor passes it) and counts the block reads past
+the served part of the window: a scan that reaches a probe pair within
+the model's REACH of it leaves the window (`left`), and the kernel's
+parse goes on from there with the row in shared memory and the history
+in device memory.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -22,8 +34,8 @@ import torch  # noqa: E402
 from lz4_tpu.block.encode_pallas import encode_blocks_pallas  # noqa: E402
 from lz4_tpu_torch.block.batch import pack_blocks, to_device_batch  # noqa: E402
 from lz4_tpu_torch.block.encode_cuda import (  # noqa: E402
-    SKIP_TRIGGER, encode_blocks_lockstep, encode_blocks_plain,
-    window_positions)
+    LEAD, NEAR, REACH, SKIP_TRIGGER, STAGE_MIN, encode_blocks_lockstep,
+    encode_blocks_plain, window_positions)
 from lz4_tpu_torch.utils.datagen import (gen_buffer, gen_hash_walk,  # noqa: E402
                                          gen_slot_words, gen_text,
                                          knuth_hash16)
@@ -158,3 +170,101 @@ def test_window_positions_are_the_serial_ones(accel):
         pos, wp = window_positions(wp, j0)
         lanes += pos
     assert lanes == serial
+
+
+def _linked(make, n, seed):
+    """(block, history): n bytes that go on from their 64 KB history, as
+    the next block of a linked frame does."""
+    data = make(65536 + n, seed)
+    return data[65536:], data[:65536]
+
+
+@pytest.mark.parametrize("accel", [1, 8, 65537])
+@pytest.mark.parametrize("stride", [1, 3])
+@pytest.mark.parametrize("max_dist", [2000, 65535])
+def test_window_reads_stay_above_the_anchor(max_dist, stride, accel):
+    """Linked rows with a full, a partial and an empty history, each
+    twice the lead: the model asserts on every read that the history
+    below the anchor's block index + 1 is never read, while the window
+    stages block bytes over it. At acceleration 65537 a window's probes
+    span past the lead, so each block leaves the window at its first."""
+    text, hist = _linked(lambda n, s: gen_text(n, seed=s), 16384, 31)
+    mixed, mhist = _linked(lambda n, s: gen_buffer(n, 0.7, seed=s), 16384,
+                           32)
+    model = _model([text, mixed, gen_text(16384, seed=33)],
+                   [hist, mhist[-3000:], None], cap=16384,
+                   max_dist=max_dist, dict_stride=stride,
+                   acceleration=accel)
+    if accel == 65537:
+        assert model.left == 3
+    else:
+        assert model.hist_reads > 0 and model.staged > 0
+    if accel == 1:
+        assert model.hist_sequences > 0 and model.left == 0
+
+
+def test_window_offsets_at_the_history_edge():
+    """A row equal to its random history (each probe's candidate lies
+    65,536 back, out of reach, and its literals run past the lead) and a
+    row equal to its history shifted by one byte (offset 65,535: the
+    candidate is the history byte just above the anchor's block index,
+    the lowest the window must still hold)."""
+    rng = np.random.default_rng(34)
+    hist = rng.bytes(65536)
+    model = _model([hist, hist[1:] + b"x"], [hist, hist], cap=65536,
+                   dict_stride=1)
+    assert model.hist_sequences >= 1 and model.left > 0
+
+
+def test_window_reads_past_the_lead():
+    """Zero rows (one match runs the whole block, past the lead) and a
+    random row (one literal run, past the lead: the anchor never moves,
+    so nothing is staged). The forward count stages on as the match
+    grows, so the window serves every read of the zero rows; the random
+    row's probes reach the served part's end, so its parse leaves the
+    window there."""
+    rng = np.random.default_rng(35)
+    for block, hist, far in [(bytes(65536), bytes(65536), False),
+                             (bytes(65536), None, False),
+                             (rng.bytes(65536), rng.bytes(65536), True)]:
+        model = _model([block], [hist], cap=65536)
+        assert model.left == far and model.block_reads > 0
+        assert model.staged == (0 if far else 65536 - LEAD)
+
+
+def test_window_serves_the_cell_rows():
+    """Four rows of the lz4f-linked-64k.compress cell's corpus (one of
+    each class, made on the CPU from the cell's generator at seed
+    2650000017 in strata of 8): the window serves every read, so no
+    block leaves it, and a share of the windows and matches reach into
+    the history."""
+    from benchmark import corpus
+    spec = dict(corpus.load_spec("silesia-like"), stratum_blocks=8)
+    data, classes = corpus.make_corpus(spec, 2650000017, 8, 131072, "cpu")
+    rows = [int(torch.nonzero(classes == c)[0]) for c in range(4)]
+    host = data[rows].numpy()
+    model = _model([r[65536:].tobytes() for r in host],
+                   [r[:65536].tobytes() for r in host], cap=65536)
+    assert model.left == 0
+    assert model.staged == 4 * (65536 - LEAD)
+    assert model.hist_windows > model.windows // 4
+    assert model.hist_sequences > model.hits // 20
+
+
+@pytest.mark.parametrize("name,kernel", [("LEAD", "kLead"),
+                                         ("NEAR", "kNear"),
+                                         ("STAGE_MIN", "kStageMin"),
+                                         ("REACH", "kReach")])
+def test_window_constants_are_the_kernels(name, kernel):
+    """The model's staging constants are the kernel's, as its source
+    (`csrc/encode_serial.cu`) defines them."""
+    cu = (Path(__file__).parents[1] / "lz4_tpu_torch" / "csrc" /
+          "encode_serial.cu").read_text()
+    exprs = dict(re.findall(r"constexpr int (k\w+) = ([\w +*/]+);", cu))
+
+    def value(k):
+        expr = re.sub(r"k\w+", lambda m: str(value(m.group())), exprs[k])
+        return eval(expr.replace("/", "//"))
+
+    assert value(kernel) == {"LEAD": LEAD, "NEAR": NEAR,
+                             "STAGE_MIN": STAGE_MIN, "REACH": REACH}[name]
